@@ -1,0 +1,2 @@
+"""Device ops: hand-written Hopper kernels, their wrappers and their plain
+PyTorch versions."""

@@ -1,0 +1,128 @@
+"""Chaining on the 16 B/anchor wire planes.
+
+Counterpart of `mm2tpu/ops/chain_packed.py`: the host packs each task's
+(x, y) uint64 anchor words into four int32 planes (hi, lo, yhi, ylo);
+on the device `derive_qss` extracts qi/span from y, the v3 kernel
+scores the batch, and `p_rel` compresses p to a relative int16 for the
+copy back. The 8 B delta wire of the JAX package (`pack_tasks8`,
+`_decode8`) is not ported: it was built for a narrow TPU link and yields
+the same f/prel as this wire.
+
+`pack_tasks16`, `unpack_prel` and `v_carry_host` are NumPy code copied
+verbatim from the JAX package, whose modules import jax at the top.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import chain_v3
+from .chain_v3 import WINDOW
+
+
+def derive_qss(yhi, ylo):
+    """qi/span/sid from the split y word (pack_anchors semantics)."""
+    qi = ylo
+    span = yhi & 0xFF
+    sid = (yhi >> 16) & 0xFF
+    return qi, span, sid
+
+
+def p_rel(p):
+    """Relative-predecessor compression: int32 absolute -> int16 rel
+    (0 = no predecessor)."""
+    i = torch.arange(p.shape[-1], dtype=torch.int32, device=p.device)
+    return torch.where(p >= 0, i - p, 0).to(torch.int16)
+
+
+def chain_scores_packed(hi, lo, yhi, ylo, n, avg, *, max_dist_x: int,
+                        max_dist_y: int, bw: int, iter_cap: int,
+                        gap_scale: float, is_cdna: bool, n_segs: int,
+                        chain_fn=None):
+    """Batched chaining on the wire planes: (B, N) int32 hi/lo/yhi/ylo,
+    (B, 1) n and avg. Returns (f int32, prel int16), both (B, N).
+    `chain_fn` defaults to `chain_v3.chain_scores_v3`; a caller may pass
+    `chain_v3.chain_scores_v3_reference` to run the plain version on any
+    device. Multi-segment and cDNA scoring (the v2 contract) raise."""
+    if is_cdna or n_segs != 1:
+        raise NotImplementedError(
+            "chaining with is_cdna=%s, n_segs=%d needs the v2 contract "
+            "(kernel K2, ROADMAP M4), which is not ported yet"
+            % (is_cdna, n_segs))
+    fn = chain_v3.chain_scores_v3 if chain_fn is None else chain_fn
+    qi, span, _ = derive_qss(yhi, ylo)
+    f, p = fn(hi, lo, qi.contiguous(), span.contiguous(), n, avg,
+              max_dist_x=max_dist_x, max_dist_y=max_dist_y, bw=bw,
+              iter_cap=iter_cap, gap_scale=gap_scale)
+    return f, p_rel(p)
+
+
+def planes_to_torch(hi, lo, yhi, ylo, n, avg, device):
+    """`pack_tasks16`'s NumPy planes as tensors on `device`. A CUDA upload
+    goes through pinned memory and does not block the host."""
+    dev = torch.device(device)
+    out = []
+    for a in (hi, lo, yhi, ylo, n, avg):
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if dev.type == "cuda":
+            t = t.pin_memory().to(dev, non_blocking=True)
+        out.append(t)
+    return tuple(out)
+
+
+# ---- copied verbatim from mm2tpu/ops/chain_packed.py ----
+
+def unpack_prel(prel_row: np.ndarray, n: int) -> np.ndarray:
+    """Host-side inverse of _p_rel for one row truncated to n."""
+    rel = np.asarray(prel_row[:n], dtype=np.int32)
+    i = np.arange(n, dtype=np.int32)
+    return np.where(rel > 0, i - rel, -1)
+
+
+def pack_tasks16(tasks, N: int):
+    """Pack anchor arrays into the four 16 B/anchor wire planes +
+    (n, avg) scalars. Padding rows carry the never-matching hi sentinel
+    (pack_anchors:202)."""
+    from mm2tpu.ops.chain_ref import avg_qspan_scaled
+    B = len(tasks)
+    hi = np.full((B, N), -0x7FFFFF0, np.int32)
+    lo = np.zeros((B, N), np.int32)
+    yhi = np.zeros((B, N), np.int32)
+    ylo = np.zeros((B, N), np.int32)
+    n_arr = np.zeros((B, 1), np.int32)
+    avg_arr = np.zeros((B, 1), np.float32)
+    for b, a in enumerate(tasks):
+        m = len(a)
+        if m == 0:
+            continue
+        x = a[:, 0]
+        y = a[:, 1]
+        hi[b, :m] = (x >> np.uint64(32)).astype(np.uint32).view(np.int32)
+        lo[b, :m] = (x & np.uint64(0xFFFFFFFF)).astype(np.uint32) \
+            .view(np.int32)
+        yhi[b, :m] = (y >> np.uint64(32)).astype(np.uint32).view(np.int32)
+        ylo[b, :m] = (y & np.uint64(0xFFFFFFFF)).astype(np.uint32) \
+            .view(np.int32)
+        n_arr[b, 0] = m
+        avg_arr[b, 0] = avg_qspan_scaled(a)
+    return hi, lo, yhi, ylo, n_arr, avg_arr
+
+
+# ---- copied verbatim from mm2tpu/ops/chain_pallas_v2.py ----
+
+def v_carry_host(f: np.ndarray, p: np.ndarray) -> np.ndarray:
+    """v[i] = max f along the predecessor chain — host-side vectorized
+    pointer doubling over (B, N) batches (chain.c:110 semantics)."""
+    B, N = f.shape
+    idx = np.broadcast_to(np.arange(N, dtype=np.int64), (B, N))
+    ptr = np.where(p >= 0, p, idx).astype(np.int64)
+    v = f.copy()
+    steps = max(1, int(np.ceil(np.log2(max(N, 2)))))
+    for _ in range(steps):
+        v = np.maximum(v, np.take_along_axis(v, ptr, axis=1))
+        ptr = np.take_along_axis(ptr, ptr, axis=1)
+    return v
+
+
+__all__ = ["chain_scores_packed", "derive_qss", "p_rel", "planes_to_torch",
+           "pack_tasks16", "unpack_prel", "v_carry_host", "WINDOW"]
