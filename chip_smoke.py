@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's map-ont batch path once on one CUDA card.
+"""Drive the PyTorch port's map-ont batch paths once on one CUDA card.
 
 Run from the root of a checkout, with no arguments:
 
@@ -8,22 +8,36 @@ Run from the root of a checkout, with no arguments:
 Phases (any failure exits non-zero; no phase's failure is caught):
   0. the card's name and power limit; no CUDA device -> error
   1. `make -B -C native` (a stale native library corrupts chains
-     silently) and the nvcc build of mm2tpu_torch/csrc/*.cu
+     silently) and the nvcc build of mm2tpu_torch/csrc/*.cu, one nvcc
+     per source, with each kernel's ptxas register and spill report
   2. the chaining kernel against its plain PyTorch version on the card,
      on seeded synthetic batches from (8, 1024) up to the main path's
      largest bucket (128, 65536), f and p equal, with both timed
-  3. the main path: `mm2tpu_torch.cli.main -x map-ont --device cuda` on a
+  3. the extd2 kernel (extension DP, backtrack start and trace) against
+     its plain version on the card: seeded fills of 300-1000 and
+     2000-5000 bases (10% substitutions, 5% indels), B = 8 and 64,
+     map-ont scoring, w = 500 (and w = -1 at the small size), five flag
+     sets; every ez register, op code and CIGAR equal, both timed at the
+     largest shape
+  4. the PAF path: `mm2tpu_torch.cli.main -x map-ont --device cuda` on a
      seeded 48 Mb genome with 1000 ONT-like reads; >= 95% of the reads
-     must map, and only the kernel may have chained
-  4. the first 200 reads of at most 8 kb mapped again through the same
-     CLI with the plain chaining on CUDA tensors: their PAF lines must be
-     byte-identical
-  5. a JSON line per kernel, then {"ok": true, "device": {...}} last
+     must map, and only the chaining kernel may have chained
+  5. the SAM path: the same reads with `-a --align-backend gpu
+     --align-tpu-min-mat 1`, every extension fill on the extd2 kernel,
+     then with `--align-backend host` (the native extension): the SAMs
+     must be byte-identical without @PG, and only the kernels may have
+     run
+  6. the first 200 reads of at most 8 kb mapped again through the PAF
+     path with the plain chaining on CUDA tensors, and the first 50 of
+     them through the SAM path with the plain extd2 on CUDA tensors:
+     their PAF and SAM lines must be byte-identical to the kernels'
+  7. a JSON line per kernel, the card's name and power limit, then
+     {"ok": true, "device": {...}} last
 
 Everything runs through `mm2tpu_torch`; the script imports nothing of
-JAX and nothing of the JAX package. The plain version's agreement with
-the NumPy window oracle and with the Pallas kernel is held in the CPU
-tests (tests/test_torch_chain_v3.py).
+JAX and nothing of the JAX package. The plain versions' agreement with
+the NumPy oracles and with the Pallas kernels is held in the CPU tests
+(tests/test_torch_chain_v3.py, tests/test_torch_ksw2_extd2.py).
 """
 from __future__ import annotations
 
@@ -41,9 +55,12 @@ import numpy as np
 import torch
 
 REPO = Path(__file__).resolve().parent
+DEVICE = "cuda"
 WORKLOAD = dict(genome_mb=48, n_reads=1000, seed=0)
 MIN_MAPPED = 0.95
 PARITY_READS, PARITY_MAX_LEN = 200, 8000
+SAM_READS = 1000          # reads of the SAM path (all of the workload)
+EXT_PARITY_READS = 50     # of the parity reads, through the plain extd2
 # (B, N) of the kernel-vs-plain batches: the main path's buckets run
 # from N = 1024 to 65536 with B up to 128. The last shape is the one the
 # kernel line of the JSON reports.
@@ -58,6 +75,25 @@ CONFIGS = {
     "mdx>mdy": dict(max_dist_x=5000, max_dist_y=800, bw=500, iter_cap=5000,
                     gap_scale=1.0),
 }
+# extd2 kernel-vs-plain fills: (B, shortest, longest target, bands). The
+# last shape is the one the kernel line of the JSON reports.
+EXT_SHAPES = [(8, 300, 1000, (500, -1)), (64, 300, 1000, (500, -1)),
+              (64, 2000, 5000, (500,))]
+# map-ont scoring: match 2, mismatch 4, N -1; gaps (4, 2) and (24, 1)
+EXT_GAPS = dict(q=4, e=2, q2=24, e2=1)
+EXT_ZDROP = 400
+KSW_EZ_RIGHT, KSW_EZ_APPROX_MAX, KSW_EZ_APPROX_DROP = 0x02, 0x08, 0x10
+KSW_EZ_EXTZ_ONLY, KSW_EZ_REV_CIGAR = 0x40, 0x80
+EXT_FLAGS = {
+    "0": 0,
+    "APPROX_MAX": KSW_EZ_APPROX_MAX,
+    "APPROX_MAX|APPROX_DROP": KSW_EZ_APPROX_MAX | KSW_EZ_APPROX_DROP,
+    "EXTZ_ONLY": KSW_EZ_EXTZ_ONLY,
+    "EXTZ_ONLY|RIGHT|REV_CIGAR": KSW_EZ_EXTZ_ONLY | KSW_EZ_RIGHT
+    | KSW_EZ_REV_CIGAR,
+}
+EZ_FIELDS = ("max", "zdropped", "max_q", "max_t", "mqe", "mqe_t", "mte",
+             "mte_q", "score", "reach_end", "cigar")
 
 
 def say(phase, msg):
@@ -107,7 +143,7 @@ def synth_batch(B, N, seed):
     tasks = [synth_anchors(int(rng.integers(N // 2, N + 1)), seed=seed + b,
                            **kinds[b % len(kinds)]) for b in range(B)]
     hi, lo, yhi, ylo, n, avg = planes_to_torch(*pack_tasks16(tasks, N),
-                                               "cuda")
+                                               DEVICE)
     qi, span, _ = derive_qss(yhi, ylo)
     return hi, lo, qi.contiguous(), span.contiguous(), n, avg
 
@@ -146,7 +182,7 @@ def phase_build():
         "in %.3f s" % (native_s, kernel_s))
     if _build.build_log:
         for ln in _build.build_log.strip().splitlines():
-            if "registers" in ln or "spill" in ln:
+            if "entry function" in ln or "registers" in ln or "spill" in ln:
                 say(1, "ptxas: " + ln.strip())
 
 
@@ -183,6 +219,112 @@ def phase_kernel_vs_plain():
     return times, max_err
 
 
+def mutate(seq, rng, sub=0.1, ind=0.05):
+    """A copy of `seq` with substitutions and indels (the generator of
+    tests/test_ksw2_pallas.py, whose module imports pytest)."""
+    out = []
+    for c in seq:
+        x = rng.random()
+        if x < sub:
+            out.append(rng.integers(0, 4))
+        elif x < sub + ind / 2:
+            continue
+        elif x < sub + ind:
+            out.append(int(c))
+            out.append(rng.integers(0, 4))
+        else:
+            out.append(int(c))
+    return np.array(out, dtype=np.uint8)
+
+
+def synth_fills(B, lo, hi, seed):
+    """B (query, target) fills with targets of lo..hi bases. Even fills
+    are global (the query is the whole target, mutated), odd ones
+    extension-shaped (a mutated 2/3 prefix); every fourth query carries
+    two N bases."""
+    rng = np.random.default_rng(seed)
+    tasks = []
+    for b in range(B):
+        t8 = rng.integers(0, 4, int(rng.integers(lo, hi + 1))).astype(
+            np.uint8)
+        q8 = mutate(t8 if b % 2 == 0 else t8[: len(t8) * 2 // 3], rng)
+        if b % 4 == 3:
+            q8[rng.integers(0, len(q8), 2)] = 4
+        tasks.append((q8, t8))
+    return tasks
+
+
+def ext_matrix():
+    mat = np.full((5, 5), -4, np.int8)
+    np.fill_diagonal(mat, 2)
+    mat[4, :] = mat[:, 4] = -1
+    return mat
+
+
+def phase_ext_kernel_vs_plain():
+    """Returns (kernel ms, plain ms) at the last of EXT_SHAPES (flag 0,
+    w = 500) and the max abs error over every ez register, op code and
+    final (i, j) compared."""
+    from mm2tpu_torch.ops import ksw2_extd2 as X
+    mat = ext_matrix()
+    max_err, timed = 0, None
+    for si, (B, lo, hi, bands) in enumerate(EXT_SHAPES):
+        tasks = synth_fills(B, lo, hi, seed=200 + si)
+        for w in bands:
+            for name, flag in EXT_FLAGS.items():
+                end_bonus = 10 if flag & KSW_EZ_EXTZ_ONLY else -1
+                raw = {}
+
+                def keep(tag, fn):
+                    def run(*a, **kw):
+                        raw[tag] = fn(*a, **kw)
+                        return raw[tag]
+                    return run
+
+                args = (tasks, mat, *EXT_GAPS.values(), w, EXT_ZDROP,
+                        end_bonus, flag)
+                kern = X.extd2_batch(*args, device=DEVICE,
+                                     fn=keep("kernel", X.extd2_traced))
+                plain = X.extd2_batch(
+                    *args, device=DEVICE,
+                    fn=keep("plain", X.extd2_traced_reference))
+                err = max(int((a.to(torch.int64) - b.to(torch.int64))
+                              .abs().max())
+                          for a, b in zip(raw["kernel"], raw["plain"]))
+                max_err = max(max_err, err)
+                same = all(torch.equal(a, b)
+                           for a, b in zip(raw["kernel"], raw["plain"]))
+                bad = [(i, f) for i, (k, p) in enumerate(zip(kern, plain))
+                       for f in EZ_FIELDS if getattr(k, f) != getattr(p, f)]
+                if not same or bad:
+                    raise AssertionError(
+                        "extd2 kernel != plain at B=%d, %d-%d bp, w=%d, "
+                        "flag %s: max abs err %d, fields %s"
+                        % (B, lo, hi, w, name, err, bad[:5]))
+                say(3, "kernel == plain at B=%d, %d-%d bp, w=%d, flag %s: "
+                    "%d CIGARs, %d z-dropped" % (
+                        B, lo, hi, w, name, sum(bool(r.cigar) for r in kern),
+                        sum(r.zdropped for r in kern)))
+        if si == len(EXT_SHAPES) - 1:
+            pk = X.pack_fills(tasks, mat, **EXT_GAPS)
+            planes = [torch.from_numpy(a).to(DEVICE)
+                      for a in (pk.lens, pk.tsf, pk.qcol)]
+            kw = dict(**EXT_GAPS, zdrop=EXT_ZDROP, sc_mch=pk.sc_mch,
+                      sc_mis=pk.sc_mis, sc_N=pk.sc_N, w=bands[0],
+                      right=False, approx=False, approx_drop=False,
+                      extz_only=False, end_bonus=-1)
+            ms, _ = cuda_ms(functools.partial(X.extd2_traced, *planes, **kw),
+                            3)
+            plain_ms, _ = cuda_ms(functools.partial(
+                X.extd2_traced_reference, *planes, **kw), 1, warmup=False)
+            timed = (ms, plain_ms)
+            say(3, "time at B=%d, %d-%d bp, w=%d, flag 0 (%d rows at most): "
+                "kernel %.3f ms, plain %.3f ms" % (
+                    B, lo, hi, bands[0], int(pk.lens.sum(1).max()) - 1, ms,
+                    plain_ms))
+    return timed, max_err
+
+
 def load_make_workload():
     spec = importlib.util.spec_from_file_location(
         "make_workload", REPO / "scripts" / "make_workload.py")
@@ -197,14 +339,14 @@ def phase_main_path(tmp):
     from mm2tpu_torch.utils import profiling
     t0 = time.perf_counter()
     ref, reads = load_make_workload().make(tmp, **WORKLOAD)
-    say(3, "workload generated in %.3f s: %s, %s"
+    say(4, "workload generated in %.3f s: %s, %s"
         % (time.perf_counter() - t0, os.path.basename(ref),
            os.path.basename(reads)))
     paf = os.path.join(tmp, "out.paf")
     chain_v3.launches = 0
     chain_v3.reference_calls = 0
     t0 = time.perf_counter()
-    rc = cli.main(["-x", "map-ont", "--device", "cuda", "--profile",
+    rc = cli.main(["-x", "map-ont", "--device", DEVICE, "--profile",
                    "-o", paf, ref, reads])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -227,17 +369,17 @@ def phase_main_path(tmp):
     if len(mapped) < MIN_MAPPED * n_reads:
         raise AssertionError("only %d of %d reads mapped"
                              % (len(mapped), n_reads))
-    say(3, "mapped %d of %d reads (%d PAF lines) in %.3f s wall: %.3f "
+    say(4, "mapped %d of %d reads (%d PAF lines) in %.3f s wall: %.3f "
         "reads/s; kernel launches %d, plain-version calls %d"
         % (len(mapped), n_reads, len(lines), wall, n_reads / wall,
            launches, ref_calls))
-    say(3, "stage seconds: " + ", ".join(
+    say(4, "stage seconds: " + ", ".join(
         "%s %.3f" % (k, v[0]) for k, v in sorted(stages.items())))
-    say(3, "counters: " + ", ".join(
+    say(4, "counters: " + ", ".join(
         "%s %d" % (k, v) for k, v in sorted(counters.items())))
     busy = stages["chain.gpu_busy"][0]
     mapping_wall = wall - stages["index"][0]
-    say(3, "card busy %.3f s (chain.gpu_busy) of %.3f s wall: idle share "
+    say(4, "card busy %.3f s (chain.gpu_busy) of %.3f s wall: idle share "
         "%.3f; of the %.3f s after the index build: idle share %.3f"
         % (busy, wall, 1 - busy / wall, mapping_wall,
            1 - busy / mapping_wall))
@@ -257,6 +399,96 @@ def read_fasta(path):
     return [(name, "".join(parts)) for name, parts in recs]
 
 
+def write_reads(path, recs):
+    with open(path, "w") as fh:
+        fh.writelines(">%s\n%s\n" % r for r in recs)
+
+
+def strip_pg(text):
+    return "".join(ln for ln in text.splitlines(True)
+                   if not ln.startswith("@PG"))
+
+
+def sam_args(backend, out, ref, reads, *extra):
+    return ["-x", "map-ont", "-a", "--align-backend", backend,
+            "--align-tpu-min-mat", "1", "--device", DEVICE, *extra, "-o",
+            out, ref, reads]
+
+
+def phase_sam(tmp, ref, reads):
+    """The SAM path through the extd2 kernel, then through the host's
+    native extension; returns the kernel run's SAM text and its count of
+    extd2 launches."""
+    from mm2tpu_torch import cli
+    from mm2tpu_torch.ops import chain_v3
+    from mm2tpu_torch.ops import ksw2_extd2 as X
+    from mm2tpu_torch.utils import profiling
+    recs = read_fasta(reads)[:SAM_READS]
+    sub = os.path.join(tmp, "sam_reads.fa")
+    write_reads(sub, recs)
+    gpu_sam, host_sam = (os.path.join(tmp, n) for n in ("gpu.sam",
+                                                        "host.sam"))
+    chain_v3.launches = chain_v3.reference_calls = 0
+    X.launches = X.reference_calls = 0
+    t0 = time.perf_counter()
+    rc = cli.main(sam_args("gpu", gpu_sam, ref, sub, "--profile"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(chain_launches=chain_v3.launches,
+                  chain_plain=chain_v3.reference_calls,
+                  ext_launches=X.launches, ext_plain=X.reference_calls)
+    stages, counters = profiling.snapshot(), dict(profiling.counters)
+    profiling.disable()
+    if rc != 0:
+        raise AssertionError("SAM path: mm2tpu_torch.cli.main returned %d"
+                             % rc)
+    if counts["chain_launches"] <= 0 or counts["ext_launches"] <= 0 or \
+            counts["chain_plain"] or counts["ext_plain"] or \
+            counters.get("ext.fills", 0) <= 0:
+        raise AssertionError("SAM path: %s, ext.fills %s" % (
+            counts, counters.get("ext.fills")))
+    t0 = time.perf_counter()
+    rc = cli.main(sam_args("host", host_sam, ref, sub))
+    torch.cuda.synchronize()
+    host_wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError("host-extension run returned %d" % rc)
+    with open(gpu_sam) as fh:
+        got = fh.read()
+    with open(host_sam) as fh:
+        want = fh.read()
+    if strip_pg(got) != strip_pg(want):
+        raise AssertionError("SAM through the extd2 kernel differs from "
+                             "SAM through the host extension")
+    body = [ln.split("\t") for ln in got.splitlines()
+            if ln and not ln.startswith("@")]
+    mapped = {c[0] for c in body if not int(c[1]) & 4}
+    if len(mapped) < MIN_MAPPED * len(recs):
+        raise AssertionError("SAM path: only %d of %d reads mapped"
+                             % (len(mapped), len(recs)))
+    say(5, "%d reads (n = %d): SAM through the extd2 kernel (%d records, "
+        "%d reads mapped) is byte-identical to SAM through the host "
+        "extension, without @PG" % (len(recs), len(recs), len(body),
+                                    len(mapped)))
+    say(5, "wall: kernels %.3f s (%.3f reads/s), host extension %.3f s "
+        "(%.3f reads/s)" % (wall, len(recs) / wall, host_wall,
+                            len(recs) / host_wall))
+    say(5, "launches: chain_v3 %d, ksw2_extd2 %d; plain-version calls: "
+        "chain %d, extd2 %d" % (counts["chain_launches"],
+                                counts["ext_launches"],
+                                counts["chain_plain"], counts["ext_plain"]))
+    say(5, "stage seconds: " + ", ".join(
+        "%s %.3f" % (k, v[0]) for k, v in sorted(stages.items())))
+    say(5, "counters: " + ", ".join(
+        "%s %d" % (k, v) for k, v in sorted(counters.items())))
+    busy = stages["chain.gpu_busy"][0] + stages["ext.gpu_busy"][0]
+    say(5, "card busy %.3f s (chain.gpu_busy %.3f + ext.gpu_busy %.3f) of "
+        "%.3f s wall: idle share %.3f" % (
+            busy, stages["chain.gpu_busy"][0], stages["ext.gpu_busy"][0],
+            wall, 1 - busy / wall))
+    return got, counts["ext_launches"]
+
+
 def phase_parity(tmp, ref, reads, lines):
     from mm2tpu_torch import cli
     from mm2tpu_torch.ops import chain_v3
@@ -269,7 +501,7 @@ def phase_parity(tmp, ref, reads, lines):
     paf = os.path.join(tmp, "parity.paf")
     t0 = time.perf_counter()
     calls, launches = chain_v3.reference_calls, chain_v3.launches
-    rc = cli.main(["-x", "map-ont", "--device", "cuda", "-o", paf, ref, sub],
+    rc = cli.main(["-x", "map-ont", "--device", DEVICE, "-o", paf, ref, sub],
                   chain_fn=chain_v3.chain_scores_v3_reference)
     torch.cuda.synchronize()
     if rc != 0:
@@ -284,9 +516,45 @@ def phase_parity(tmp, ref, reads, lines):
     if got != want:
         raise AssertionError("plain-version PAF differs from the kernel's "
                              "on the %d parity reads" % len(recs))
-    say(4, "%d reads <= %d bp: plain-version PAF (%d bytes, %.3f s) is "
+    say(6, "%d reads <= %d bp: plain-version PAF (%d bytes, %.3f s) is "
         "byte-identical to the kernel's" % (
             len(recs), PARITY_MAX_LEN, len(got), time.perf_counter() - t0))
+    return recs
+
+
+def phase_ext_parity(tmp, ref, recs, sam):
+    """The first EXT_PARITY_READS parity reads through the SAM path with
+    the plain extd2 on CUDA tensors: their SAM records must equal the
+    kernel run's."""
+    from mm2tpu_torch import cli
+    from mm2tpu_torch.ops import ksw2_extd2 as X
+    recs = recs[:EXT_PARITY_READS]
+    names = {name for name, _ in recs}
+    sub = os.path.join(tmp, "ext_parity.fa")
+    write_reads(sub, recs)
+    out = os.path.join(tmp, "ext_parity.sam")
+    calls, launches = X.reference_calls, X.launches
+    t0 = time.perf_counter()
+    rc = cli.main(sam_args("gpu", out, ref, sub),
+                  ext_fn=X.extd2_traced_reference)
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise AssertionError("extension parity run returned %d" % rc)
+    if X.reference_calls == calls or X.launches != launches:
+        raise AssertionError("extension parity run did not use the plain "
+                             "extd2 only")
+    with open(out) as fh:
+        got = [ln for ln in fh.read().splitlines()
+               if ln and not ln.startswith("@")]
+    want = [ln for ln in sam.splitlines()
+            if ln and not ln.startswith("@") and ln.split("\t", 1)[0] in names]
+    if got != want:
+        raise AssertionError("plain-extd2 SAM differs from the kernel's on "
+                             "the %d parity reads" % len(recs))
+    say(6, "%d reads: plain-extd2 SAM (%d records, %d flushes, %.3f s) is "
+        "byte-identical to the kernel's" % (
+            len(recs), len(got), X.reference_calls - calls,
+            time.perf_counter() - t0))
 
 
 def main() -> int:
@@ -298,9 +566,12 @@ def main() -> int:
                                       torch.cuda.get_device_name(0)))
     phase_build()
     times, max_err = phase_kernel_vs_plain()
+    ext_times, ext_err = phase_ext_kernel_vs_plain()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         ref, reads, lines, launches = phase_main_path(tmp)
-        phase_parity(tmp, ref, reads, lines)
+        sam, ext_launches = phase_sam(tmp, ref, reads)
+        recs = phase_parity(tmp, ref, reads, lines)
+        phase_ext_parity(tmp, ref, recs, sam)
     ms, plain_ms = times[SHAPES[-1]]
     print(json.dumps({"kernels": [{
         "name": "chain_v3",
@@ -311,6 +582,15 @@ def main() -> int:
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
+    }, {
+        "name": "ksw2_extd2",
+        "route": "cuda",
+        "source": "mm2tpu_torch/csrc/ksw2_extd2.cu",
+        "replaces": "mm2tpu/ops/ksw2_pallas.py:86",
+        "launches": ext_launches,
+        "max_abs_err": ext_err,
+        "ms": ext_times[0],
+        "plain_ms": ext_times[1],
     }]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,15 @@
 """Command-line entry point of the port: minimap2-style arguments, batch
-mode, chaining on a torch device.
+mode, chaining (and with `--align-backend gpu` the extension fills) on a
+torch device.
 
 Counterpart of `mm2tpu/cli.py` (`main`, `_map_batch`, `_map_all`'s batch
 branch). The option surface, the index reader, the query reader and the
 PAF/SAM emission are the JAX package's, imported as is. Added:
-`--device {cuda,cpu}`. Usage:
+`--device {cuda,cpu}` and the value `gpu` of `--align-backend`. Usage:
 
     python -m mm2tpu_torch.cli -x map-ont [--device cuda] ref.fa reads.fa
+    python -m mm2tpu_torch.cli -x map-ont -a --align-backend gpu \
+        [--align-tpu-min-mat N] [--device cuda] ref.fa reads.fa
 """
 from __future__ import annotations
 
@@ -36,7 +39,8 @@ def _unsupported(args, mo: MapOptions) -> Optional[str]:
     if args.seed_backend == "tpu":
         return "--seed-backend tpu (device seeding, ROADMAP M7)"
     if args.align_backend == "tpu":
-        return "--align-backend tpu (device extension, ROADMAP M5)"
+        return ("--align-backend tpu (the Pallas kernels; the port's device "
+                "extension is --align-backend gpu)")
     if args.chain_backend:
         return ("--chain-backend (per-task routing of the stream mode, "
                 "ROADMAP M3; the port always chains in batch mode)")
@@ -62,16 +66,25 @@ def build_torch_parser():
     p.description = "minimap2-class mapper, chaining on a PyTorch device"
     p.set_defaults(map_mode="batch")
     p.add_argument("--device", choices=DEVICES, default="cuda",
-                   help="where the chaining DP runs: cuda = the Hopper "
-                        "kernel, cpu = its plain PyTorch version [cuda]")
+                   help="where the chaining DP (and with --align-backend "
+                        "gpu the extension fills) runs: cuda = the Hopper "
+                        "kernels, cpu = their plain PyTorch versions [cuda]")
+    act = next(a for a in p._actions if a.dest == "align_backend")
+    act.choices = ["host", "tpu", "gpu"]
+    act.help = ("gpu = extension fills of at least --align-tpu-min-mat "
+                "cells, batched across reads, on --device (bit-exact); "
+                "host = the native extension")
     return p
 
 
-def main(argv: Optional[List[str]] = None, *, chain_fn=None) -> int:
+def main(argv: Optional[List[str]] = None, *, chain_fn=None,
+         ext_fn=None) -> int:
     """Run the CLI on `argv`; returns the exit code. `chain_fn` replaces
     the chaining function of every batch (see
-    `ops.chain_packed.chain_scores_packed`): a check runs the same
-    arguments through the kernel's plain version with it."""
+    `ops.chain_packed.chain_scores_packed`) and `ext_fn` the extension
+    function of every flush of `--align-backend gpu` (see
+    `ops.ksw2_extd2.extd2_batch`): a check runs the same arguments
+    through the kernels' plain versions with them."""
     argv = argv if argv is not None else sys.argv[1:]
     # ketopt optional-argument semantics (as mm2tpu.cli.main)
     argv = ["--cs=short" if a == "--cs" else a for a in argv]
@@ -108,7 +121,7 @@ def main(argv: Optional[List[str]] = None, *, chain_fn=None) -> int:
     out = open(args.output, "w") if args.output and args.output != "-" \
         else sys.stdout
     try:
-        rc = _run(args, argv, io, mo, device, out, chain_fn)
+        rc = _run(args, argv, io, mo, device, out, chain_fn, ext_fn)
     finally:
         if out is not sys.stdout:
             out.close()
@@ -119,7 +132,8 @@ def main(argv: Optional[List[str]] = None, *, chain_fn=None) -> int:
     return rc
 
 
-def _run(args, argv, io, mo: MapOptions, device, out, chain_fn) -> int:
+def _run(args, argv, io, mo: MapOptions, device, out, chain_fn,
+         ext_fn) -> int:
     parts = index_parts(args.target, io, n_threads=args.t)
     with profiling.stage("index"):
         mi = next(parts, None)
@@ -181,7 +195,8 @@ def _run(args, argv, io, mo: MapOptions, device, out, chain_fn) -> int:
             mi.n_alt = n_alt
         if args.query:
             mapopt_update(mo, mi)
-            n_mapped = map_all(args.query, mi, mo, out, device, chain_fn)
+            n_mapped = map_all(args.query, mi, mo, out, device, chain_fn,
+                               ext_fn)
             timing.log("worker_pipeline", "mapped %d sequences" % n_mapped)
         n_parts += 1
         mi = nxt
@@ -189,7 +204,7 @@ def _run(args, argv, io, mo: MapOptions, device, out, chain_fn) -> int:
 
 
 def map_batch(mi, mo: MapOptions, batch, consume, device,
-              chain_fn=None) -> None:
+              chain_fn=None, ext_fn=None) -> None:
     """Batched mapping of one mini-batch (mm2tpu.cli._map_batch): paired
     orientation and INDEPEND_SEG splitting as in mm2tpu.cli."""
     from .mapping.pipeline import map_frags_batched
@@ -212,7 +227,7 @@ def map_batch(mi, mo: MapOptions, batch, consume, device,
             meta.append((fi, None))
     ress = map_frags_batched(mi, [t[0] for t in tasks], mo,
                              [t[1] for t in tasks], device,
-                             chain_fn=chain_fn)
+                             chain_fn=chain_fn, ext_fn=ext_fn)
     frag_res = {}
     for (fi, seg), r in zip(meta, ress):
         if seg is None or fi not in frag_res:
@@ -235,7 +250,7 @@ def map_batch(mi, mo: MapOptions, batch, consume, device,
 
 
 def map_all(query_paths, mi, mo: MapOptions, out, device,
-            chain_fn=None) -> int:
+            chain_fn=None, ext_fn=None) -> int:
     """Map every query mini-batch against one index part and emit in
     input order. Returns the number of sequences mapped."""
     reader = FastxReader(query_paths, mo.mini_batch_size,
@@ -249,7 +264,7 @@ def map_all(query_paths, mi, mo: MapOptions, out, device,
             emit(mi, mo, frag, res, out)
 
     for batch in reader.batches():
-        map_batch(mi, mo, batch, consume, device, chain_fn)
+        map_batch(mi, mo, batch, consume, device, chain_fn, ext_fn)
     return n_mapped
 
 

@@ -1,40 +1,80 @@
-"""Batched mapping with the chaining DP on a torch device.
+"""Batched mapping with the chaining DP, and optionally the extension
+fills, on a torch device.
 
 Counterpart of `mm2tpu/mapping/pipeline.py::map_frags_batched` (its
 single-device, host-seeded branch). Seeding, the re-seed trigger and
 everything after chaining are the JAX package's host code, imported as
-is; only the per-bucket chaining call changes.
+is; the per-bucket chaining call changes, and with `--align-backend gpu`
+the reads are aligned on a thread pool whose extension fills meet in a
+`TorchExtBatcher`.
 """
 from __future__ import annotations
 
 import contextlib
 from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from mm2tpu.index.build import MMIndex
+from mm2tpu.mapping.extbatch import worker_scope
 from mm2tpu.mapping.pipeline import (FragResult, _needs_rechain,
                                      _post_chain, _prepare)
 from mm2tpu.mapping.seed import collect_seed_hits
 from mm2tpu.ops import chain_ref
-from mm2tpu.options import MapOptions
+from mm2tpu.options import MM_F_CIGAR, MapOptions
 from mm2tpu.parallel.batching import bucket_for
 
 from ..device import resolve_device
 from ..ops.chain_packed import (WINDOW, chain_scores_packed, pack_tasks16,
                                 planes_to_torch, unpack_prel, v_carry_host)
 from ..utils import native, profiling
+from .extbatch import TorchExtBatcher
 
 # the batch sizes of the JAX package, kept so both packages form the same
 # batches (a task's chaining does not depend on its batch either way)
 B_SIZES = (8, 16, 32, 64, 128)
 
 
+@contextlib.contextmanager
+def _count_host_fills():
+    """Under --profile, count the fills that stay on the host's native
+    extension (below `--align-tpu-min-mat`) as `ext.host_fills`. The JAX
+    package's align code looks its native entry points up on
+    `mm2tpu.native.lib` at each call: `ksw_extd2` and `ksw_extd2_fill_ref`
+    run one fill, `ksw_fill_walk` a read's whole seed-gap walk (it
+    returns how many fills it ran first). They are wrapped for the
+    duration, in this process only."""
+    if not profiling.enabled:
+        yield
+        return
+    per_call = {"ksw_extd2": lambda out: 1,
+                "ksw_extd2_fill_ref": lambda out: 1,
+                "ksw_fill_walk": lambda out: out[0]}
+    saved = {name: getattr(native, name) for name in per_call}
+
+    def counted(name, fn):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            profiling.count("ext.host_fills", per_call[name](out))
+            return out
+        return call
+
+    for name, fn in saved.items():
+        setattr(native, name, counted(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(native, name, fn)
+
+
 def map_frags_batched(mi: MMIndex, frag_seqs: Sequence[Sequence[str]],
                       opt: MapOptions, qnames: Sequence[Optional[str]],
-                      device, *, chain_fn=None) -> List[FragResult]:
+                      device, *, chain_fn=None,
+                      ext_fn=None) -> List[FragResult]:
     """Map many fragments with batched chaining on `device` ("cuda" or
     "cpu"): fragments are seeded on the host, their anchor arrays grouped
     into fixed (B, N) buckets, and each bucket chained in one call, then
@@ -47,15 +87,23 @@ def map_frags_batched(mi: MMIndex, frag_seqs: Sequence[Sequence[str]],
     when the copy is done. With `--profile` on, CUDA events also time
     each bucket's chaining on the card (stage `chain.gpu_busy`).
     `chain_fn` replaces the chaining function (see
-    `ops.chain_packed.chain_scores_packed`)."""
+    `ops.chain_packed.chain_scores_packed`).
+
+    With `opt.align_backend == "gpu"` and CIGARs on, the reads are
+    aligned on a pool of up to 32 threads. Every extd2 fill of at least
+    `opt.align_tpu_min_mat` cells goes to a `TorchExtBatcher` on `device`
+    (up to 64 fills a flush); smaller fills run inline on the host's
+    native extension, the JAX package's placement rule. `ext_fn`
+    replaces the extension function of every flush (see
+    `ops.ksw2_extd2.extd2_batch`)."""
     if opt.seed_backend == "tpu":
         raise NotImplementedError(
             "device seeding (--seed-backend tpu) is not ported yet "
             "(ROADMAP M7)")
     if opt.align_backend == "tpu":
         raise NotImplementedError(
-            "device extension (--align-backend tpu) is not ported yet "
-            "(ROADMAP M5)")
+            "--align-backend tpu runs the Pallas kernels; the port's "
+            "device extension is --align-backend gpu")
     dev = resolve_device(device)
     on_cuda = dev.type == "cuda"
     results: List[Optional[FragResult]] = [None] * len(frag_seqs)
@@ -179,7 +227,22 @@ def map_frags_batched(mi: MMIndex, frag_seqs: Sequence[Sequence[str]],
                 rechain.append(i)
         if rechain:
             outs.update(run_round(rechain))
-    for i in pending:
-        a, u = outs[i]
-        results[i] = _post_chain(mi, ctxs[i], opt, a, u)
+    if opt.align_backend == "gpu" and (opt.flag & MM_F_CIGAR) and pending:
+        batcher = TorchExtBatcher(dev, max_batch=64,
+                                  min_cells=opt.align_tpu_min_mat,
+                                  ext_fn=ext_fn)
+
+        def post_one(i):
+            with worker_scope(batcher):
+                a, u = outs[i]
+                return _post_chain(mi, ctxs[i], opt, a, u)
+
+        with _count_host_fills(), \
+                ThreadPoolExecutor(min(32, len(pending))) as ex:
+            for i, res in zip(pending, ex.map(post_one, pending)):
+                results[i] = res
+    else:
+        for i in pending:
+            a, u = outs[i]
+            results[i] = _post_chain(mi, ctxs[i], opt, a, u)
     return results

@@ -3,7 +3,8 @@
 The shared library has a plain C interface (no PyTorch headers), so the
 build takes seconds. It goes to `build/mm2tpu_torch/` at the repository
 root, named by a hash of the sources and flags, and is built at first
-use. A failed build raises with nvcc's stderr; nothing falls back.
+use: one nvcc process per source, all started together, then one link.
+A failed build raises with nvcc's stderr; nothing falls back.
 """
 from __future__ import annotations
 
@@ -17,8 +18,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mm2tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+              "-v")
 
 # what the last build printed (the ptxas register/shared-memory report);
 # None when the library came from the build directory
@@ -49,17 +51,39 @@ def load() -> ctypes.CDLL:
     so = BUILD_DIR / ("libmm2tpu_torch_%s.so" % h.hexdigest()[:16])
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tag = "%s.%d" % (h.hexdigest()[:16], os.getpid())
+        nvcc = _nvcc()
+        objs = [BUILD_DIR / ("%s.%s.o" % (s.stem, tag)) for s in srcs]
+        jobs = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                for s, o in zip(srcs, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for c in jobs]
+        logs = []
+        for cmd, pr in zip(jobs, procs):
+            _, err = pr.communicate()
+            if pr.returncode != 0:
+                for other in procs:
+                    other.kill()
+                    other.wait()
+                raise RuntimeError("nvcc failed (rc=%d): %s\n%s" % (
+                    pr.returncode, " ".join(cmd), err))
+            logs.append(err)
         tmp = so.with_name(so.name + ".%d.tmp" % os.getpid())
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+        cmd = [nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
         r = subprocess.run(cmd, capture_output=True, text=True)
+        for o in objs:
+            o.unlink(missing_ok=True)
         if r.returncode != 0:
-            raise RuntimeError("nvcc failed (rc=%d): %s\n%s" % (
+            raise RuntimeError("nvcc link failed (rc=%d): %s\n%s" % (
                 r.returncode, " ".join(cmd), r.stderr))
-        build_log = r.stderr
+        build_log = "".join(logs)
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.mm2tpu_chain_v3.argtypes = [vp] * 7 + [i32] * 6 + [
         ctypes.c_float, i32, vp]
     lib.mm2tpu_chain_v3.restype = i32
+    lib.mm2tpu_ksw2_extd2.argtypes = [vp] * 9 + [i32] * 18 + [vp]
+    lib.mm2tpu_ksw2_extd2.restype = i32
     return lib

@@ -40,7 +40,7 @@ def workload(tmp_path_factory):
 
 def test_every_module_imports_and_cli_runs_without_jax(workload, tmp_path):
     ref, reads = workload
-    out = tmp_path / "out.paf"
+    out, sam = tmp_path / "out.paf", tmp_path / "out.sam"
     r = run_python(f"""
 import importlib, pkgutil
 import mm2tpu_torch
@@ -53,10 +53,17 @@ from mm2tpu_torch.cli import main
 rc = main(["-x", "map-ont", "--device", "cpu", "-o", {str(out)!r},
            {ref!r}, {reads!r}])
 assert rc == 0, rc
+# SAM with every extension fill through the port's batcher and extd2
+rc = main(["-x", "map-ont", "-a", "--align-backend", "gpu",
+           "--align-tpu-min-mat", "1", "--device", "cpu", "-o", {str(sam)!r},
+           {ref!r}, {reads!r}])
+assert rc == 0, rc
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
 """)
     assert r.returncode == 0, r.stderr[-3000:]
     assert len(out.read_text().splitlines()) >= 12
+    assert sum(1 for ln in sam.read_text().splitlines()
+               if not ln.startswith("@")) >= 12
 
 
 def test_blocker_really_blocks_jax():
@@ -92,7 +99,7 @@ def test_resolve_device_is_explicit():
     (["--mesh", "2"], "M8", 1),
     (["--hosts", "2"], "M9", 1),
     (["--seed-backend", "tpu"], "M7", 1),
-    (["--align-backend", "tpu"], "M5", 1),
+    (["--align-backend", "tpu"], "--align-backend gpu", 1),
     (["--chain-backend", "native"], "M3", 1),
     (["--split-prefix", "x"], "M1", 1),
     (["-x", "splice"], "M4", 1),

@@ -77,7 +77,8 @@ def test_map_frags_batched_matches_jax(small_genome):
 
 def test_map_frags_batched_rejects_unported_backends(small_genome):
     mi, mo, frags, names = small_genome
-    for field, item in (("seed_backend", "M7"), ("align_backend", "M5")):
+    for field, item in (("seed_backend", "M7"),
+                        ("align_backend", "align-backend gpu")):
         old = getattr(mo, field)
         setattr(mo, field, "tpu")
         try:
