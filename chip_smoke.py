@@ -1,43 +1,66 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's map-ont batch paths once on one CUDA card.
+"""Drive the PyTorch port's batch paths once on one CUDA card: -x map-ont
+(PAF and SAM), -x sr read pairs and -x splice spliced reads.
 
 Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; no phase's failure is caught):
-  0. the card's name and power limit; no CUDA device -> error
-  1. `make -B -C native` (a stale native library corrupts chains
-     silently) and the nvcc build of mm2tpu_torch/csrc/*.cu, one nvcc
-     per source, with each kernel's ptxas register and spill report
-  2. the chaining kernel against its plain PyTorch version on the card,
-     on seeded synthetic batches from (8, 1024) up to the main path's
-     largest bucket (128, 65536), f and p equal, with both timed
-  3. the extd2 kernel (extension DP, backtrack start and trace) against
-     its plain version on the card: seeded fills of 300-1000 and
+  0. the card's name, power limit and SM clock; no CUDA device -> error
+  1. the port's native runtime (native/mm2tpu_native.cpp, forced: a
+     stale library corrupts chains silently) and the nvcc build of
+     mm2tpu_torch/csrc/*.cu, one nvcc per source, side by side, with each
+     kernel's ptxas register and spill report
+  2. the chaining kernel K1 (csrc/chain.cu, single-segment contract)
+     against its plain PyTorch version on the card, on seeded synthetic
+     batches from (8, 1024) up to the map-ont path's largest bucket
+     (128, 65536), under four settings (the map-ont one only at the
+     largest shape), f and p equal, with both timed
+  3. the extd2 kernel K3 (extension DP, backtrack start and trace)
+     against its plain version on the card: seeded fills of 300-1000 and
      2000-5000 bases (10% substitutions, 5% indels), B = 8 and 64,
      map-ont scoring, w = 500 (and w = -1 at the small size), five flag
      sets; every ez register, op code and CIGAR equal, both timed at the
      largest shape
-  4. the PAF path: `mm2tpu_torch.cli.main -x map-ont --device cuda` on a
-     seeded 48 Mb genome with 1000 ONT-like reads; >= 95% of the reads
-     must map, and only the chaining kernel may have chained
-  5. the SAM path: the same reads with `-a --align-backend gpu
-     --align-tpu-min-mat 1`, every extension fill on the extd2 kernel,
-     then with `--align-backend host` (the native extension): the SAMs
-     must be byte-identical without @PG, and only the kernels may have
-     run
-  6. the first 200 reads of at most 8 kb mapped again through the PAF
-     path with the plain chaining on CUDA tensors, and the first 50 of
+  4. the chaining kernel K2 (csrc/chain.cu, general contract) against its
+     plain version: two-segment batches (read pairs, with cross-segment
+     pairs at dr = 0) and single-segment cDNA batches, contracts
+     (is_cdna, n_segs) in {(F, 2), (T, 1), (T, 2)}, shapes (8, 1024),
+     (128, 1024) and (64, 16384), under -x sr's and -x splice's chaining
+     settings, gap_scale 0.8 and iter_cap 500; f and p equal, both timed
+     at the largest shape
+  5. the map-ont PAF path: `mm2tpu_torch.cli.main -x map-ont --device
+     cuda` on a seeded 48 Mb genome with 1000 ONT-like reads; >= 95% of
+     the reads must map, and only K1 may have chained
+  6. the map-ont SAM path: the same reads with `-a --align-backend gpu
+     --align-tpu-min-mat 1`, every extension fill on K3, then with
+     `--align-backend host` (the native extension): the SAMs must be
+     byte-identical without @PG, and only the kernels may have run
+  7. the first 100 reads of at most 8 kb mapped again through the PAF
+     path with the plain chaining on CUDA tensors, and the first 20 of
      them through the SAM path with the plain extd2 on CUDA tensors:
      their PAF and SAM lines must be byte-identical to the kernels'
-  7. a JSON line per kernel, the card's name and power limit, then
-     {"ok": true, "device": {...}} last
+  8. the -x sr paired path on the same genome: 10,000 seeded read pairs
+     of 2 x 150 bp, to PAF, to SAM with `-a --align-backend gpu
+     --align-tpu-min-mat 1` and to SAM with `--align-backend host`; the
+     SAMs byte-identical without @PG, >= 90% of the pairs mapped, only K2
+     (and K3) launched and no plain version run
+  9. the -x splice path: 1000 seeded spliced reads to PAF and to SAM with
+     `-a --align-backend host` (the splice extension stays on the host);
+     >= 90% of the reads mapped, only K2 launched
+ 10. the first 500 pairs and the first 50 spliced reads mapped again with
+     the plain chaining of both contracts on CUDA tensors: their PAF
+     lines must be byte-identical to the kernels'
+ 11. no module of jax or of the JAX package loaded; a JSON line per
+     kernel (times, launches, bound), the card's name and power limit,
+     then {"ok": true, "device": {...}} last
 
 Everything runs through `mm2tpu_torch`; the script imports nothing of
 JAX and nothing of the JAX package. The plain versions' agreement with
 the NumPy oracles and with the Pallas kernels is held in the CPU tests
-(tests/test_torch_chain_v3.py, tests/test_torch_ksw2_extd2.py).
+(tests/test_torch_chain_v3.py, tests/test_torch_chain_v2.py,
+tests/test_torch_ksw2_extd2.py).
 """
 from __future__ import annotations
 
@@ -58,12 +81,15 @@ REPO = Path(__file__).resolve().parent
 DEVICE = "cuda"
 WORKLOAD = dict(genome_mb=48, n_reads=1000, seed=0)
 MIN_MAPPED = 0.95
-PARITY_READS, PARITY_MAX_LEN = 200, 8000
+# map-ont reads mapped again through the plain versions, few enough that
+# the whole script stays near 750 s of its 1200 s limit
+PARITY_READS, PARITY_MAX_LEN = 100, 8000
 SAM_READS = 1000          # reads of the SAM path (all of the workload)
-EXT_PARITY_READS = 50     # of the parity reads, through the plain extd2
+EXT_PARITY_READS = 20     # of the parity reads, through the plain extd2
 # (B, N) of the kernel-vs-plain batches: the main path's buckets run
 # from N = 1024 to 65536 with B up to 128. The last shape is the one the
-# kernel line of the JSON reports.
+# kernel line of the JSON reports; it runs the map-ont setting only (its
+# plain version takes ~30 s a call), the others every setting.
 SHAPES = [(8, 1024), (32, 8192), (64, 16384), (128, 65536)]
 CONFIGS = {
     "map-ont": dict(max_dist_x=5000, max_dist_y=5000, bw=500, iter_cap=5000,
@@ -94,6 +120,41 @@ EXT_FLAGS = {
 }
 EZ_FIELDS = ("max", "zdropped", "max_q", "max_t", "mqe", "mqe_t", "mte",
              "mte_q", "score", "reach_end", "cigar")
+# K2 kernel-vs-plain batches: the contracts (is_cdna, n_segs) of read
+# pairs, spliced reads and spliced pairs, at the shapes of the short-read
+# buckets and of a long-read bucket, under the settings of -x sr (2 x 150
+# bp pairs: gap_ref 500, gap_qry 300, bw 100) and -x splice, and two more.
+# At the last shape each contract is timed under its own path's setting;
+# the JSON line reports (cDNA, 1 segment) under -x splice's.
+V2_SHAPES = [(8, 1024), (128, 1024), (64, 16384)]
+V2_CONTRACTS = [(False, 2), (True, 1), (True, 2)]
+V2_CONFIGS = {
+    "sr": dict(max_dist_x=500, max_dist_y=300, bw=100, iter_cap=1024,
+               gap_scale=1.0),
+    "splice": dict(max_dist_x=200000, max_dist_y=2000, bw=200000,
+                   iter_cap=1024, gap_scale=1.0),
+    "gap_scale0.8": dict(max_dist_x=5000, max_dist_y=5000, bw=500,
+                         iter_cap=1024, gap_scale=0.8),
+    "iter_cap500": dict(max_dist_x=5000, max_dist_y=5000, bw=500,
+                        iter_cap=500, gap_scale=1.0),
+}
+V2_TIMED = {(False, 2): "sr", (True, 1): "splice", (True, 2): "splice"}
+# the -x sr paired path: read pairs on the smoke genome; the first
+# SR_PARITY_PAIRS of them again through the plain chaining
+SR_PAIRS, SR_PARITY_PAIRS = 10000, 500
+# the -x splice path: spliced reads on the smoke genome; the first
+# SPLICE_PARITY_READS of them again through the plain chaining
+SPLICE_READS, SPLICE_PARITY_READS = 1000, 50
+MIN_MAPPED_SR_SPLICE = 0.90
+# The bound of a kernel (the least time the card could take for the same
+# work): the larger of its bytes over the H100's 3.35 TB/s and its int32
+# instructions over 132 SMs x 64 int32 lanes at the SM clock. Instructions
+# a chaining candidate takes in csrc/chain.cu (loop, ring loads, gates,
+# gap, key, max) and a DP cell in csrc/ksw2_extd2.cu, counted from the
+# source.
+SMS, INT32_LANES, HBM_BYTES_S = 132, 64, 3.35e12
+OPS_PER_CANDIDATE = {"chain_v3": 32, "chain_v2": 45}
+OPS_PER_CELL = 50
 
 
 def say(phase, msg):
@@ -164,22 +225,55 @@ def cuda_ms(fn, reps, warmup=True):
     return t0.elapsed_time(t1) / reps, out
 
 
+def sm_clock_mhz() -> float:
+    """The card's maximum SM clock, as nvidia-smi reads it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    return float(out)
+
+
+def bound(n_bytes, n_ops, clock_mhz):
+    """(bound ms, "bytes" or "operations")."""
+    t_bytes = n_bytes / HBM_BYTES_S
+    t_ops = n_ops / (SMS * INT32_LANES * clock_mhz * 1e6)
+    return max(t_bytes, t_ops) * 1e3, \
+        "bytes" if t_bytes >= t_ops else "operations"
+
+
+def chain_work(n, N, cap, planes, ops_per_candidate):
+    """(bytes, int32 instructions) of one chaining call on rows of n
+    anchors padded to N: `planes` int32 input planes and avg read once, f
+    and p written once; min(cap, i) candidates for each real anchor i."""
+    n = [int(k) for k in n.reshape(-1).tolist()]
+    cands = sum(int(np.minimum(np.arange(k), cap).sum()) for k in n)
+    return (4 * planes * len(n) * N + 4 * len(n) + 8 * len(n) * N,
+            cands * ops_per_candidate)
+
+
 def phase_build():
-    t0 = time.perf_counter()
-    r = subprocess.run(["make", "-B", "-C", str(REPO / "native")],
-                       capture_output=True, text=True, timeout=600)
-    if r.returncode != 0:
-        raise RuntimeError("make -B -C native failed:\n" + r.stderr)
-    native_s = time.perf_counter() - t0
-    from mm2tpu_torch.utils import native
-    if not native.available():
-        raise RuntimeError("native library did not load after the build")
+    """The port's native runtime (forced: a stale library corrupts chains
+    silently) and the CUDA kernels, built side by side."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mm2tpu_torch.native import lib as native
     from mm2tpu_torch.ops import _build
-    t0 = time.perf_counter()
-    _build.load()
-    kernel_s = time.perf_counter() - t0
-    say(1, "native runtime built in %.3f s; CUDA kernels built and loaded "
-        "in %.3f s" % (native_s, kernel_s))
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(2) as ex:
+        host = ex.submit(timed, lambda: native.build(force=True))
+        kern = ex.submit(timed, _build.load)
+        (so, native_s), (_, kernel_s) = host.result(), kern.result()
+    if not native.available() or native.loaded_from != so:
+        raise RuntimeError("the native library %s did not load after the "
+                           "build" % so)
+    say(1, "native runtime built into %s in %.3f s; CUDA kernels built and "
+        "loaded in %.3f s" % (so.relative_to(REPO), native_s, kernel_s))
     if _build.build_log:
         for ln in _build.build_log.strip().splitlines():
             if "entry function" in ln or "registers" in ln or "spill" in ln:
@@ -187,15 +281,19 @@ def phase_build():
 
 
 def phase_kernel_vs_plain():
-    """Returns ({(B, N): (kernel ms, plain ms)}, max abs error). Each
-    shape runs every setting of CONFIGS; the map-ont setting is timed:
-    the kernel over 5 calls after a warm-up, the plain version over the
-    one call that is compared."""
+    """Returns ({(B, N): (kernel ms, plain ms)}, max abs error, the work
+    of the timed call at the last shape). Each shape but the last runs
+    every setting of CONFIGS; the map-ont setting is timed: the kernel
+    over 5 calls after a warm-up, the plain version over the one call
+    that is compared."""
     from mm2tpu_torch.ops import chain_v3
     times, max_err = {}, 0
     for si, (B, N) in enumerate(SHAPES):
         planes = synth_batch(B, N, seed=100 + si)
+        last = si == len(SHAPES) - 1
         for name, cfg in CONFIGS.items():
+            if last and name != "map-ont":
+                continue
             kernel = functools.partial(chain_v3.chain_scores_v3, *planes,
                                        **cfg)
             plain = functools.partial(chain_v3.chain_scores_v3_reference,
@@ -204,6 +302,8 @@ def phase_kernel_vs_plain():
                 ms, (f, p) = cuda_ms(kernel, 5)
                 plain_ms, (f2, p2) = cuda_ms(plain, 1, warmup=False)
                 times[(B, N)] = (ms, plain_ms)
+                work = chain_work(planes[4], N, min(cfg["iter_cap"], 1024),
+                                  4, OPS_PER_CANDIDATE["chain_v3"])
             else:
                 f, p = kernel()
                 f2, p2 = plain()
@@ -216,7 +316,90 @@ def phase_kernel_vs_plain():
                 % (B, N, name, int(f.max())))
         say(2, "time at (%d, %d), map-ont: kernel %.3f ms, plain %.3f ms"
             % (B, N, *times[(B, N)]))
-    return times, max_err
+    return times, max_err, work
+
+
+def two_segment(a, seed):
+    """`a` with segment ids 0/1 in y's segment bits (bits 48-55, as
+    chain_ref.unpack_anchors reads them), drawn anchor by anchor, and one
+    anchor in ten moved onto its predecessor's x (dr == 0: across
+    segments, the pair bonus). A copy of tests/test_torch_chain_v2.py's."""
+    rng = np.random.default_rng(seed)
+    a = a.copy()
+    n = len(a)
+    sid = (rng.random(n) < 0.5).astype(np.uint64)
+    a[:, 1] |= sid << np.uint64(48)
+    dup = np.flatnonzero(rng.random(n) < 0.1)
+    dup = dup[dup > 0]
+    a[dup, 0] = a[dup - 1, 0]
+    return a
+
+
+def synth_batch_v2(B, N, seed, n_segs):
+    """synth_batch's rows (collinear ones swapped for sparse rows with
+    gaps of tens of kb, where the cDNA cost differs), as two segments
+    when n_segs > 1. Returns the CUDA planes hi, lo, qi, span, sid, n,
+    avg."""
+    from mm2tpu_torch.ops.chain_packed import (derive_qss, pack_tasks16,
+                                               planes_to_torch)
+    kinds = [dict(n_rids=3, rev_frac=0.4), dict(scale=2),
+             dict(scale=1, span=19), dict(scale=400, n_rids=2, rev_frac=1.0)]
+    rng = np.random.default_rng(seed)
+    tasks = []
+    for b in range(B):
+        a = synth_anchors(int(rng.integers(N // 2, N + 1)), seed=seed + b,
+                          **kinds[b % len(kinds)])
+        tasks.append(two_segment(a, seed + b) if n_segs > 1 else a)
+    hi, lo, yhi, ylo, n, avg = planes_to_torch(*pack_tasks16(tasks, N),
+                                               DEVICE)
+    qi, span, sid = derive_qss(yhi, ylo)
+    return (hi, lo, qi.contiguous(), span.contiguous(), sid.contiguous(), n,
+            avg)
+
+
+def phase_v2_kernel_vs_plain():
+    """K2 against its plain version on every contract, shape and setting
+    of V2_*. Returns ({contract: (kernel ms, plain ms)} at the last shape
+    under V2_TIMED's settings, max abs error, the work of the timed
+    (cDNA, 1 segment) call)."""
+    from mm2tpu_torch.ops import chain_v2
+    times, max_err, work = {}, 0, None
+    for si, (B, N) in enumerate(V2_SHAPES):
+        for ci, (is_cdna, n_segs) in enumerate(V2_CONTRACTS):
+            planes = synth_batch_v2(B, N, 300 + 10 * si + ci, n_segs)
+            for name, cfg in V2_CONFIGS.items():
+                kw = dict(cfg, is_cdna=is_cdna, n_segs=n_segs)
+                kernel = functools.partial(chain_v2.chain_scores_v2, *planes,
+                                           **kw)
+                plain = functools.partial(
+                    chain_v2.chain_scores_v2_reference, *planes, **kw)
+                timed = si == len(V2_SHAPES) - 1 and \
+                    name == V2_TIMED[(is_cdna, n_segs)]
+                if timed:
+                    ms, (f, p) = cuda_ms(kernel, 5)
+                    plain_ms, (f2, p2) = cuda_ms(plain, 1, warmup=False)
+                    times[(is_cdna, n_segs)] = (ms, plain_ms)
+                    if (is_cdna, n_segs) == (True, 1):
+                        work = chain_work(planes[5], N, cfg["iter_cap"], 5,
+                                          OPS_PER_CANDIDATE["chain_v2"])
+                else:
+                    f, p = kernel()
+                    f2, p2 = plain()
+                err = max(int((f - f2).abs().max()),
+                          int((p - p2).abs().max()))
+                max_err = max(max_err, err)
+                if not (torch.equal(f, f2) and torch.equal(p, p2)):
+                    raise AssertionError(
+                        "K2 != plain at (%d, %d), is_cdna=%s, n_segs=%d, "
+                        "%s: max abs err %d" % (B, N, is_cdna, n_segs, name,
+                                                err))
+                chained = int((p >= 0).sum())
+                say(4, "K2 == plain at (B, N) = (%d, %d), is_cdna=%s, "
+                    "n_segs=%d, %s: max f %d, %d anchors chained%s" % (
+                        B, N, is_cdna, n_segs, name, int(f.max()), chained,
+                        "; kernel %.3f ms, plain %.3f ms"
+                        % times[(is_cdna, n_segs)] if timed else ""))
+    return times, max_err, work
 
 
 def mutate(seq, rng, sub=0.1, ind=0.05):
@@ -263,8 +446,10 @@ def ext_matrix():
 
 def phase_ext_kernel_vs_plain():
     """Returns (kernel ms, plain ms) at the last of EXT_SHAPES (flag 0,
-    w = 500) and the max abs error over every ez register, op code and
-    final (i, j) compared."""
+    w = 500), the max abs error over every ez register, op code and
+    final (i, j) compared, and the timed call's work: (bytes, int32
+    instructions) for the fills' bases in, ez, op codes and (i, j) out,
+    and the band's cells (min(2w + 1, qlen) x tlen a fill)."""
     from mm2tpu_torch.ops import ksw2_extd2 as X
     mat = ext_matrix()
     max_err, timed = 0, None
@@ -315,6 +500,12 @@ def phase_ext_kernel_vs_plain():
                       extz_only=False, end_bonus=-1)
             ms, _ = cuda_ms(functools.partial(X.extd2_traced, *planes, **kw),
                             3)
+            qlens = [len(q8) for q8, _ in tasks]
+            tlens = [len(t8) for _, t8 in tasks]
+            smax = int(pk.lens.sum(1).max()) - 1
+            work = (sum(qlens) + sum(tlens) + B * (4 * X.NREG + smax + 8),
+                    OPS_PER_CELL * sum(min(2 * bands[0] + 1, q) * t
+                                       for q, t in zip(qlens, tlens)))
             plain_ms, _ = cuda_ms(functools.partial(
                 X.extd2_traced_reference, *planes, **kw), 1, warmup=False)
             timed = (ms, plain_ms)
@@ -322,7 +513,7 @@ def phase_ext_kernel_vs_plain():
                 "kernel %.3f ms, plain %.3f ms" % (
                     B, lo, hi, bands[0], int(pk.lens.sum(1).max()) - 1, ms,
                     plain_ms))
-    return timed, max_err
+    return timed, max_err, work
 
 
 def load_make_workload():
@@ -339,7 +530,7 @@ def phase_main_path(tmp):
     from mm2tpu_torch.utils import profiling
     t0 = time.perf_counter()
     ref, reads = load_make_workload().make(tmp, **WORKLOAD)
-    say(4, "workload generated in %.3f s: %s, %s"
+    say(5, "workload generated in %.3f s: %s, %s"
         % (time.perf_counter() - t0, os.path.basename(ref),
            os.path.basename(reads)))
     paf = os.path.join(tmp, "out.paf")
@@ -369,17 +560,17 @@ def phase_main_path(tmp):
     if len(mapped) < MIN_MAPPED * n_reads:
         raise AssertionError("only %d of %d reads mapped"
                              % (len(mapped), n_reads))
-    say(4, "mapped %d of %d reads (%d PAF lines) in %.3f s wall: %.3f "
+    say(5, "mapped %d of %d reads (%d PAF lines) in %.3f s wall: %.3f "
         "reads/s; kernel launches %d, plain-version calls %d"
         % (len(mapped), n_reads, len(lines), wall, n_reads / wall,
            launches, ref_calls))
-    say(4, "stage seconds: " + ", ".join(
+    say(5, "stage seconds: " + ", ".join(
         "%s %.3f" % (k, v[0]) for k, v in sorted(stages.items())))
-    say(4, "counters: " + ", ".join(
+    say(5, "counters: " + ", ".join(
         "%s %d" % (k, v) for k, v in sorted(counters.items())))
     busy = stages["chain.gpu_busy"][0]
     mapping_wall = wall - stages["index"][0]
-    say(4, "card busy %.3f s (chain.gpu_busy) of %.3f s wall: idle share "
+    say(5, "card busy %.3f s (chain.gpu_busy) of %.3f s wall: idle share "
         "%.3f; of the %.3f s after the index build: idle share %.3f"
         % (busy, wall, 1 - busy / wall, mapping_wall,
            1 - busy / mapping_wall))
@@ -402,6 +593,101 @@ def read_fasta(path):
 def write_reads(path, recs):
     with open(path, "w") as fh:
         fh.writelines(">%s\n%s\n" % r for r in recs)
+
+
+_RC = str.maketrans("ACGT", "TGCA")
+
+
+def revcomp(s):
+    return s.translate(_RC)[::-1]
+
+
+def mutate_str(rng, s, sub, indel):
+    """`s` with iid substitutions at rate `sub` and deletions and
+    one-base insertions at `indel` / 2 each."""
+    r = rng.random(len(s))
+    out = []
+    for c, x in zip(s, r):
+        if x < sub:
+            out.append("ACGT"["ACGT".index(c) + int(rng.integers(1, 4)) & 3]
+                       if c in "ACGT" else c)
+        elif x < sub + indel / 2:
+            continue
+        elif x < sub + indel:
+            out.append(c)
+            out.append("ACGT"[int(rng.integers(0, 4))])
+        else:
+            out.append(c)
+    return "".join(out)
+
+
+def make_sr_pairs(ref, out_prefix, n_pairs, seed, read_len=150,
+                  insert_mean=450, insert_sd=50, insert_range=(300, 600),
+                  sub=0.01, indel=0.001):
+    """Illumina-like read pairs from the FASTA `ref`: inserts normal
+    (mean 450, sd 50) clipped to 300-600 bp, from a random contig and
+    strand; read 1 is the insert's first `read_len` bases, read 2 the
+    reverse complement of its last (FR), each with 1% substitutions and
+    0.1% indels. Writes `<out_prefix>_1.fq` and `<out_prefix>_2.fq` with
+    matching names and returns their paths. Seeded."""
+    rng = np.random.default_rng(seed)
+    ctgs = [(name, seq) for name, seq in read_fasta(ref)
+            if len(seq) > insert_range[1] + 100]
+    lens = np.array([len(s) for _, s in ctgs], np.float64)
+    paths = [out_prefix + "_1.fq", out_prefix + "_2.fq"]
+    with open(paths[0], "w") as f1, open(paths[1], "w") as f2:
+        for k in range(n_pairs):
+            ci = int(rng.choice(len(ctgs), p=lens / lens.sum()))
+            name, g = ctgs[ci]
+            ins = int(np.clip(round(rng.normal(insert_mean, insert_sd)),
+                              *insert_range))
+            st = int(rng.integers(0, len(g) - ins))
+            frag = g[st:st + ins]
+            if rng.integers(0, 2):
+                frag = revcomp(frag)
+            qn = "pair%d_%s_%d" % (k, name, st)
+            pad = read_len + 10   # deletions must not shorten a read
+            r1 = mutate_str(rng, frag[:pad], sub, indel)[:read_len]
+            r2 = mutate_str(rng, revcomp(frag)[:pad], sub, indel)[:read_len]
+            for fh, r in ((f1, r1), (f2, r2)):
+                fh.write("@%s\n%s\n+\n%s\n" % (qn, r, "I" * len(r)))
+    return paths
+
+
+def make_spliced_reads(ref, path, n_reads, seed, exons=(3, 10),
+                       exon_len=(80, 400), intron_len=(100, 10000),
+                       err=0.05):
+    """cDNA-like reads from the FASTA `ref`: 3-10 exons of 80-400 bp,
+    taken in order from one contig, each intron starting at the first GT
+    at or after its exon's end and ending at the first AG that keeps it
+    at least a drawn 100-10,000 bp long (a canonical GT-AG junction);
+    5% error (half substitutions, a quarter each deletions and
+    insertions); the reverse complement half of the time. Writes a FASTA
+    and returns its path. Seeded."""
+    rng = np.random.default_rng(seed)
+    ctgs = [(name, seq) for name, seq in read_fasta(ref)
+            if len(seq) > 200000]
+    recs = []
+    while len(recs) < n_reads:
+        name, g = ctgs[int(rng.integers(0, len(ctgs)))]
+        pos = start = int(rng.integers(0, len(g) - 100000))
+        parts = []
+        for e in range(int(rng.integers(exons[0], exons[1] + 1))):
+            end = pos + int(rng.integers(exon_len[0], exon_len[1] + 1))
+            donor = g.find("GT", end)
+            acceptor = g.find("AG", donor + int(rng.integers(*intron_len)))
+            if donor < 0 or acceptor < 0:
+                break
+            parts.append(g[pos:donor])
+            pos = acceptor + 2
+        if len(parts) < exons[0]:
+            continue
+        s = mutate_str(rng, "".join(parts), err / 2, err / 2)
+        if rng.integers(0, 2):
+            s = revcomp(s)
+        recs.append(("tx%d_%s_%d" % (len(recs), name, start), s))
+    write_reads(path, recs)
+    return path
 
 
 def strip_pg(text):
@@ -466,23 +752,23 @@ def phase_sam(tmp, ref, reads):
     if len(mapped) < MIN_MAPPED * len(recs):
         raise AssertionError("SAM path: only %d of %d reads mapped"
                              % (len(mapped), len(recs)))
-    say(5, "%d reads (n = %d): SAM through the extd2 kernel (%d records, "
+    say(6, "%d reads (n = %d): SAM through the extd2 kernel (%d records, "
         "%d reads mapped) is byte-identical to SAM through the host "
         "extension, without @PG" % (len(recs), len(recs), len(body),
                                     len(mapped)))
-    say(5, "wall: kernels %.3f s (%.3f reads/s), host extension %.3f s "
+    say(6, "wall: kernels %.3f s (%.3f reads/s), host extension %.3f s "
         "(%.3f reads/s)" % (wall, len(recs) / wall, host_wall,
                             len(recs) / host_wall))
-    say(5, "launches: chain_v3 %d, ksw2_extd2 %d; plain-version calls: "
+    say(6, "launches: chain_v3 %d, ksw2_extd2 %d; plain-version calls: "
         "chain %d, extd2 %d" % (counts["chain_launches"],
                                 counts["ext_launches"],
                                 counts["chain_plain"], counts["ext_plain"]))
-    say(5, "stage seconds: " + ", ".join(
+    say(6, "stage seconds: " + ", ".join(
         "%s %.3f" % (k, v[0]) for k, v in sorted(stages.items())))
-    say(5, "counters: " + ", ".join(
+    say(6, "counters: " + ", ".join(
         "%s %d" % (k, v) for k, v in sorted(counters.items())))
     busy = stages["chain.gpu_busy"][0] + stages["ext.gpu_busy"][0]
-    say(5, "card busy %.3f s (chain.gpu_busy %.3f + ext.gpu_busy %.3f) of "
+    say(6, "card busy %.3f s (chain.gpu_busy %.3f + ext.gpu_busy %.3f) of "
         "%.3f s wall: idle share %.3f" % (
             busy, stages["chain.gpu_busy"][0], stages["ext.gpu_busy"][0],
             wall, 1 - busy / wall))
@@ -492,6 +778,7 @@ def phase_sam(tmp, ref, reads):
 def phase_parity(tmp, ref, reads, lines):
     from mm2tpu_torch import cli
     from mm2tpu_torch.ops import chain_v3
+    from mm2tpu_torch.ops.chain_packed import chain_scores_plain
     recs = [r for r in read_fasta(reads)
             if len(r[1]) <= PARITY_MAX_LEN][:PARITY_READS]
     names = {name for name, _ in recs}
@@ -502,7 +789,7 @@ def phase_parity(tmp, ref, reads, lines):
     t0 = time.perf_counter()
     calls, launches = chain_v3.reference_calls, chain_v3.launches
     rc = cli.main(["-x", "map-ont", "--device", DEVICE, "-o", paf, ref, sub],
-                  chain_fn=chain_v3.chain_scores_v3_reference)
+                  chain_fn=chain_scores_plain)
     torch.cuda.synchronize()
     if rc != 0:
         raise AssertionError("parity run: mm2tpu_torch.cli.main returned %d"
@@ -516,7 +803,7 @@ def phase_parity(tmp, ref, reads, lines):
     if got != want:
         raise AssertionError("plain-version PAF differs from the kernel's "
                              "on the %d parity reads" % len(recs))
-    say(6, "%d reads <= %d bp: plain-version PAF (%d bytes, %.3f s) is "
+    say(7, "%d reads <= %d bp: plain-version PAF (%d bytes, %.3f s) is "
         "byte-identical to the kernel's" % (
             len(recs), PARITY_MAX_LEN, len(got), time.perf_counter() - t0))
     return recs
@@ -551,10 +838,231 @@ def phase_ext_parity(tmp, ref, recs, sam):
     if got != want:
         raise AssertionError("plain-extd2 SAM differs from the kernel's on "
                              "the %d parity reads" % len(recs))
-    say(6, "%d reads: plain-extd2 SAM (%d records, %d flushes, %.3f s) is "
+    say(7, "%d reads: plain-extd2 SAM (%d records, %d flushes, %.3f s) is "
         "byte-identical to the kernel's" % (
             len(recs), len(got), X.reference_calls - calls,
             time.perf_counter() - t0))
+
+
+def chain_counts():
+    from mm2tpu_torch.ops import chain_v2, chain_v3
+    from mm2tpu_torch.ops import ksw2_extd2 as X
+    return {"chain_v3": chain_v3, "chain_v2": chain_v2, "ksw2_extd2": X}
+
+
+def drive(argv, profile=True, **main_kw):
+    """`mm2tpu_torch.cli.main(argv)` with every kernel's launch and
+    plain-version count set to 0 just before and read just after. Returns
+    (wall s, {kernel: (launches, plain calls)}, stage seconds, counters)."""
+    from mm2tpu_torch import cli
+    from mm2tpu_torch.utils import profiling
+    mods = chain_counts()
+    for m in mods.values():
+        m.launches = m.reference_calls = 0
+    t0 = time.perf_counter()
+    rc = cli.main(argv + (["--profile"] if profile else []), **main_kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: (m.launches, m.reference_calls) for k, m in mods.items()}
+    stages, counters = profiling.snapshot(), dict(profiling.counters)
+    profiling.disable()
+    if rc != 0:
+        raise AssertionError("mm2tpu_torch.cli.main%s returned %d"
+                             % (tuple(argv), rc))
+    return wall, counts, stages, counters
+
+
+def only_k2(phase, what, counts, *also):
+    """Only K2 (and the kernels in `also`) launched, no plain version."""
+    for k, (launches, plain) in counts.items():
+        want = k == "chain_v2" or k in also
+        if plain or (launches > 0) != want:
+            raise AssertionError("%s: launches/plain-version calls %s"
+                                 % (what, counts))
+    say(phase, "%s: launches %s; plain-version calls 0" % (what, ", ".join(
+        "%s %d" % (k, c[0]) for k, c in counts.items())))
+
+
+def report(phase, what, wall, n_reads, stages, counters):
+    say(phase, "%s: %d reads in %.3f s wall: %.3f reads/s" % (
+        what, n_reads, wall, n_reads / wall))
+    say(phase, "%s stage seconds: %s" % (what, ", ".join(
+        "%s %.3f" % (k, v[0]) for k, v in sorted(stages.items()))))
+    say(phase, "%s counters: %s" % (what, ", ".join(
+        "%s %d" % (k, v) for k, v in sorted(counters.items()))))
+    busy = sum(stages[k][0] for k in ("chain.gpu_busy", "ext.gpu_busy")
+               if k in stages)
+    say(phase, "%s: card busy %.3f s (chain.gpu_busy + ext.gpu_busy) of "
+        "%.3f s wall: idle share %.3f; of the %.3f s after the index "
+        "build: idle share %.3f" % (
+            what, busy, wall, 1 - busy / wall, wall - stages["index"][0],
+            1 - busy / (wall - stages["index"][0])))
+
+
+def sam_records(text):
+    return [ln.split("\t") for ln in text.splitlines()
+            if ln and not ln.startswith("@")]
+
+
+def head_fastq(path, n, out):
+    """The first n records of a 4-line FASTQ file, written to `out`."""
+    with open(path) as fh, open(out, "w") as fo:
+        for k, ln in enumerate(fh):
+            if k >= 4 * n:
+                break
+            fo.write(ln)
+    return out
+
+
+def phase_sr(tmp, ref):
+    """The -x sr paired path: PAF, then SAM with every extension fill on
+    K3, then SAM through the host extension; the SAMs must be identical
+    and only K2 (and K3) may have run. Returns the pairs' files, the PAF
+    lines and K2's launches in the PAF run."""
+    t0 = time.perf_counter()
+    r1, r2 = make_sr_pairs(ref, os.path.join(tmp, "sr"), SR_PAIRS, seed=1)
+    say(8, "%d read pairs of 2 x 150 bp (inserts 450 +- 50 bp, 1%% "
+        "substitutions, 0.1%% indels) generated in %.3f s" % (
+            SR_PAIRS, time.perf_counter() - t0))
+    paf = os.path.join(tmp, "sr.paf")
+    wall, counts, stages, counters = drive(
+        ["-x", "sr", "--device", DEVICE, "-o", paf, ref, r1, r2])
+    only_k2(8, "PAF", counts)
+    with open(paf) as fh:
+        lines = fh.read().splitlines()
+    mapped = {ln.split("\t", 1)[0] for ln in lines if ln}
+    if len(mapped) < MIN_MAPPED_SR_SPLICE * SR_PAIRS:
+        raise AssertionError("-x sr: only %d of %d pairs mapped"
+                             % (len(mapped), SR_PAIRS))
+    say(8, "PAF: %d of %d pairs mapped (%d PAF lines)" % (
+        len(mapped), SR_PAIRS, len(lines)))
+    report(8, "PAF", wall, 2 * SR_PAIRS, stages, counters)
+    sams = {}
+    for backend in ("gpu", "host"):
+        out = os.path.join(tmp, "sr.%s.sam" % backend)
+        w, c, st, ctr = drive(["-x", "sr", "-a", "--align-backend", backend,
+                               "--align-tpu-min-mat", "1", "--device",
+                               DEVICE, "-o", out, ref, r1, r2])
+        if backend == "gpu":
+            only_k2(8, "SAM through K3", c, "ksw2_extd2")
+            if ctr.get("ext.fills", 0) <= 0:
+                raise AssertionError("-x sr SAM: no fill reached K3")
+            report(8, "SAM through K3", w, 2 * SR_PAIRS, st, ctr)
+        else:
+            only_k2(8, "SAM through the host extension", c)
+            say(8, "SAM through the host extension: %.3f s wall, %.3f "
+                "reads/s" % (w, 2 * SR_PAIRS / w))
+        with open(out) as fh:
+            sams[backend] = strip_pg(fh.read())
+    if sams["gpu"] != sams["host"]:
+        raise AssertionError("-x sr: SAM through K3 differs from SAM "
+                             "through the host extension")
+    mates = {}
+    for c in sam_records(sams["gpu"]):
+        flag = int(c[1])
+        if not flag & 0x904:   # a mapped primary record
+            mates.setdefault(c[0], set()).add(flag & 0xC0)
+    both = sum(1 for v in mates.values() if len(v) == 2)
+    if both < MIN_MAPPED_SR_SPLICE * SR_PAIRS:
+        raise AssertionError("-x sr SAM: both mates mapped for only %d of "
+                             "%d pairs" % (both, SR_PAIRS))
+    say(8, "SAM through K3 is byte-identical to SAM through the host "
+        "extension, without @PG; both mates mapped for %d of %d pairs"
+        % (both, SR_PAIRS))
+    return r1, r2, lines, counts["chain_v2"][0]
+
+
+def phase_splice(tmp, ref):
+    """The -x splice path: PAF, then SAM with the splice fills on the
+    host (the device splice extension, K4, is not ported); only K2 may
+    have chained. Returns the reads' FASTA, the PAF lines and K2's
+    launches in the PAF run."""
+    t0 = time.perf_counter()
+    reads = make_spliced_reads(ref, os.path.join(tmp, "tx.fa"),
+                               SPLICE_READS, seed=2)
+    say(9, "%d spliced reads (3-10 exons of 80-400 bp, GT-AG introns of "
+        "100-10,000 bp, 5%% error) generated in %.3f s" % (
+            SPLICE_READS, time.perf_counter() - t0))
+    paf = os.path.join(tmp, "tx.paf")
+    wall, counts, stages, counters = drive(
+        ["-x", "splice", "--device", DEVICE, "-o", paf, ref, reads])
+    only_k2(9, "PAF", counts)
+    with open(paf) as fh:
+        lines = fh.read().splitlines()
+    mapped = {ln.split("\t", 1)[0] for ln in lines if ln}
+    if len(mapped) < MIN_MAPPED_SR_SPLICE * SPLICE_READS:
+        raise AssertionError("-x splice: only %d of %d reads mapped"
+                             % (len(mapped), SPLICE_READS))
+    say(9, "PAF: %d of %d reads mapped (%d PAF lines)" % (
+        len(mapped), SPLICE_READS, len(lines)))
+    report(9, "PAF", wall, SPLICE_READS, stages, counters)
+    sam = os.path.join(tmp, "tx.sam")
+    w, c, st, ctr = drive(["-x", "splice", "-a", "--align-backend", "host",
+                           "--device", DEVICE, "-o", sam, ref, reads])
+    only_k2(9, "SAM (splice fills on the host)", c)
+    with open(sam) as fh:
+        body = sam_records(fh.read())
+    primary = [r for r in body if not int(r[1]) & 0x904]
+    spliced = sum(1 for r in primary if "N" in r[5])
+    if len({r[0] for r in primary}) < MIN_MAPPED_SR_SPLICE * SPLICE_READS:
+        raise AssertionError("-x splice SAM: only %d of %d reads mapped"
+                             % (len(primary), SPLICE_READS))
+    say(9, "SAM: %d primary records, %d with an intron (N) in the CIGAR"
+        % (len(primary), spliced))
+    report(9, "SAM (splice fills on the host)", w, SPLICE_READS, st, ctr)
+    return reads, lines, counts["chain_v2"][0]
+
+
+def phase_v2_parity(tmp, ref, sr, tx):
+    """The first SR_PARITY_PAIRS pairs and SPLICE_PARITY_READS spliced
+    reads again through the plain chaining on CUDA tensors: their PAF
+    lines must equal the kernels'."""
+    from mm2tpu_torch.ops.chain_packed import chain_scores_plain
+    r1, r2, sr_lines, _ = sr
+    tx_reads, tx_lines, _ = tx
+    sub = [head_fastq(r, SR_PARITY_PAIRS, os.path.join(tmp, "par_%d.fq" % k))
+           for k, r in ((1, r1), (2, r2))]
+    with open(sub[0]) as fh:
+        sr_names = {ln[1:].split()[0] for k, ln in enumerate(fh)
+                    if k % 4 == 0}
+    recs = read_fasta(tx_reads)[:SPLICE_PARITY_READS]
+    tx_sub = os.path.join(tmp, "par_tx.fa")
+    write_reads(tx_sub, recs)
+    for what, preset, queries, names, lines in (
+            ("%d pairs" % SR_PARITY_PAIRS, "sr", sub, sr_names, sr_lines),
+            ("%d spliced reads" % SPLICE_PARITY_READS, "splice", [tx_sub],
+             {n for n, _ in recs}, tx_lines)):
+        out = os.path.join(tmp, "par_%s.paf" % preset)
+        wall, counts, _, _ = drive(
+            ["-x", preset, "--device", DEVICE, "-o", out, ref, *queries],
+            profile=False, chain_fn=chain_scores_plain)
+        if counts["chain_v2"][1] <= 0 or \
+                any(c[0] for c in counts.values()):
+            raise AssertionError("%s parity run did not use the plain "
+                                 "versions only: %s" % (preset, counts))
+        with open(out) as fh:
+            got = fh.read()
+        want = "".join(ln + "\n" for ln in lines
+                       if ln.split("\t", 1)[0] in names)
+        if got != want:
+            raise AssertionError("plain-chaining PAF differs from K2's on "
+                                 "the %s" % what)
+        say(10, "%s (-x %s): plain-chaining PAF (%d lines, %d plain "
+            "calls, %.3f s) is byte-identical to K2's" % (
+                what, preset, len(got.splitlines()), counts["chain_v2"][1],
+                wall))
+
+
+def kernel_line(name, source, replaces, launches, max_err, times, work,
+                clock):
+    bound_ms, bound_by = bound(*work, clock)
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max_err, "ms": times[0], "plain_ms": times[1],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            # no single PyTorch call computes a chaining DP or a ksw2
+            # extension
+            "library_ms": None}
 
 
 def main() -> int:
@@ -562,36 +1070,48 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is False: this script "
                            "runs the port on a CUDA card only")
-    say(0, "torch %s, CUDA %s, %s" % (torch.__version__, torch.version.cuda,
-                                      torch.cuda.get_device_name(0)))
+    clock = sm_clock_mhz()
+    say(0, "torch %s, CUDA %s, %s, max SM clock %g MHz" % (
+        torch.__version__, torch.version.cuda, torch.cuda.get_device_name(0),
+        clock))
     phase_build()
-    times, max_err = phase_kernel_vs_plain()
-    ext_times, ext_err = phase_ext_kernel_vs_plain()
+    times, max_err, work = phase_kernel_vs_plain()
+    ext_times, ext_err, ext_work = phase_ext_kernel_vs_plain()
+    v2_times, v2_err, v2_work = phase_v2_kernel_vs_plain()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         ref, reads, lines, launches = phase_main_path(tmp)
         sam, ext_launches = phase_sam(tmp, ref, reads)
         recs = phase_parity(tmp, ref, reads, lines)
         phase_ext_parity(tmp, ref, recs, sam)
-    ms, plain_ms = times[SHAPES[-1]]
-    print(json.dumps({"kernels": [{
-        "name": "chain_v3",
-        "route": "cuda",
-        "source": "mm2tpu_torch/csrc/chain_v3.cu",
-        "replaces": "mm2tpu/ops/chain_pallas_v3.py:48",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }, {
-        "name": "ksw2_extd2",
-        "route": "cuda",
-        "source": "mm2tpu_torch/csrc/ksw2_extd2.cu",
-        "replaces": "mm2tpu/ops/ksw2_pallas.py:86",
-        "launches": ext_launches,
-        "max_abs_err": ext_err,
-        "ms": ext_times[0],
-        "plain_ms": ext_times[1],
-    }]}), flush=True)
+        sr = phase_sr(tmp, ref)
+        tx = phase_splice(tmp, ref)
+        phase_v2_parity(tmp, ref, sr, tx)
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "mm2tpu"))
+    if bad:
+        raise AssertionError("modules of jax or of the JAX package were "
+                             "imported: %s" % bad[:20])
+    say(11, "no module named jax, mm2tpu or mm2tpu.* is in sys.modules "
+        "(%d modules, %d of mm2tpu_torch)" % (
+            len(sys.modules),
+            sum(m.split(".")[0] == "mm2tpu_torch" for m in sys.modules)))
+    B, N = SHAPES[-1]
+    say(11, "K1 at (%d, %d), K2 at (%d, %d) (cDNA, 1 segment, -x splice), "
+        "K3 at B = %d, %d-%d bp: bound = max(bytes / %.3g B/s, int32 "
+        "instructions / (%d SMs x %d lanes x %g MHz))" % (
+            B, N, *V2_SHAPES[-1], *EXT_SHAPES[-1][:3], HBM_BYTES_S, SMS,
+            INT32_LANES, clock))
+    print(json.dumps({"kernels": [
+        kernel_line("chain_v3", "mm2tpu_torch/csrc/chain.cu",
+                    "mm2tpu/ops/chain_pallas_v3.py:48", launches, max_err,
+                    times[SHAPES[-1]], work, clock),
+        kernel_line("chain_v2", "mm2tpu_torch/csrc/chain.cu",
+                    "mm2tpu/ops/chain_pallas_v2.py:142", sr[3] + tx[2],
+                    v2_err, v2_times[(True, 1)], v2_work, clock),
+        kernel_line("ksw2_extd2", "mm2tpu_torch/csrc/ksw2_extd2.cu",
+                    "mm2tpu/ops/ksw2_pallas.py:86", ext_launches, ext_err,
+                    ext_times, ext_work, clock),
+    ]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,31 +3,537 @@ mode, chaining (and with `--align-backend gpu` the extension fills) on a
 torch device.
 
 Counterpart of `mm2tpu/cli.py` (`main`, `_map_batch`, `_map_all`'s batch
-branch). The option surface, the index reader, the query reader and the
-PAF/SAM emission are the JAX package's, imported as is. Added:
+branch). The option surface (`build_parser`, `_parse_num`, `apply_args`),
+the index reader (`index_parts`, `_mmi_cached_parts`), `_revcomp_bseq`
+and the emission (`emit`) are the port's verbatim copies of that
+module's; `apply_args` leaves out `--router-params`, the cost model of
+the stream mode's routing (ROADMAP M3), which the port refuses. Added:
 `--device {cuda,cpu}` and the value `gpu` of `--align-backend`. Usage:
 
     python -m mm2tpu_torch.cli -x map-ont [--device cuda] ref.fa reads.fa
     python -m mm2tpu_torch.cli -x map-ont -a --align-backend gpu \
         [--align-tpu-min-mat N] [--device cuda] ref.fa reads.fa
+    python -m mm2tpu_torch.cli -x sr [-a [--align-backend gpu]] \
+        [--device cuda] ref.fa reads_1.fq reads_2.fq
+    python -m mm2tpu_torch.cli -x splice [-a] [--device cuda] ref.fa reads.fa
 """
 from __future__ import annotations
 
+import argparse
+import os
 import sys
 from typing import List, Optional
 
-from mm2tpu.cli import (MM_VERSION, _revcomp_bseq, apply_args, build_parser,
-                        emit, index_parts)
-from mm2tpu.index.build import MM_I_HPC, MM_I_NO_SEQ, save_index
-from mm2tpu.index.mmi import write_mmi
-from mm2tpu.io.bseq import FastxReader
-from mm2tpu.io.format import sam_header
-from mm2tpu.options import (MM_F_CIGAR, MM_F_FRAG_MODE, MM_F_INDEPEND_SEG,
-                            MM_F_OUT_SAM, MM_F_SPLICE, MapOptions, check_opt,
-                            mapopt_update, set_opt)
-
+from . import __version__
 from .device import DEVICES, resolve_device
+from .index.build import build_index, save_index, MM_I_HPC, MM_I_NO_SEQ
+from .index.mmi import write_mmi, MAGIC
+from .io.bseq import FastxReader, read_fastx
+from .io.format import write_paf, write_sam, sam_header
+from .options import (set_opt, mapopt_update, check_opt, MapOptions, IdxOptions,
+                      MM_F_CIGAR, MM_F_OUT_SAM, MM_F_OUT_CG, MM_F_OUT_CS,
+                      MM_F_OUT_CS_LONG, MM_F_OUT_MD, MM_F_NO_PRINT_2ND,
+                      MM_F_ALL_CHAINS, MM_F_NO_DIAG, MM_F_NO_DUAL,
+                      MM_F_NO_LJOIN, MM_F_SR, MM_F_FRAG_MODE, MM_F_EQX,
+                      MM_F_SOFTCLIP, MM_F_PAF_NO_HIT, MM_F_SAM_HIT_ONLY,
+                      MM_F_FOR_ONLY, MM_F_REV_ONLY, MM_F_COPY_COMMENT,
+                      MM_F_SPLICE, MM_F_SPLICE_FOR, MM_F_SPLICE_REV,
+                      MM_F_HARD_MLEVEL, MM_F_NO_END_FLT, MM_F_INDEPEND_SEG,
+                      MM_F_LONG_CIGAR, MM_F_NO_QUAL, MM_F_HEAP_SORT)
 from .utils import profiling, timing
+
+# ---- copied verbatim from mm2tpu/cli.py ----
+
+MM_VERSION = f"2.18-mm2tpu-{__version__}"
+
+
+def _parse_num(s: str) -> int:
+    mult = 1
+    if s and s[-1] in "GgMmKk":
+        mult = {"g": 10**9, "m": 10**6, "k": 10**3}[s[-1].lower()]
+        s = s[:-1]
+    return int(float(s) * mult + 0.499)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="mm2tpu", add_help=True,
+                                description="TPU-native minimap2-class mapper")
+    p.add_argument("target", nargs="?")
+    p.add_argument("query", nargs="*")
+    p.add_argument("-x", dest="preset")
+    p.add_argument("-k", type=int)
+    p.add_argument("-w", type=int)
+    p.add_argument("-H", action="store_true", help="HPC k-mers")
+    p.add_argument("-d", dest="dump_index")
+    p.add_argument("-r", dest="bw")
+    p.add_argument("-t", type=int, default=3, help="threads (host-side)")
+    p.add_argument("-v", type=int, default=3)
+    p.add_argument("-g", dest="max_gap")
+    p.add_argument("-G", "--max-intron-len", dest="max_intron_len")
+    p.add_argument("-F", dest="max_frag_len")
+    p.add_argument("-N", dest="best_n", type=int)
+    p.add_argument("-p", dest="pri_ratio", type=float)
+    p.add_argument("-M", "--mask-level", dest="mask_level", type=float)
+    p.add_argument("-c", action="store_true", help="PAF CIGAR")
+    p.add_argument("-D", action="store_true", help="--no-self")
+    p.add_argument("-P", action="store_true", help="--all-chain")
+    p.add_argument("-X", action="store_true")
+    p.add_argument("-a", action="store_true", help="SAM output")
+    p.add_argument("-Q", action="store_true")
+    p.add_argument("-Y", action="store_true")
+    p.add_argument("-L", action="store_true")
+    p.add_argument("-y", action="store_true")
+    p.add_argument("-T", dest="sdust_thres", type=int)
+    p.add_argument("-n", "--min-count", dest="min_cnt", type=int)
+    p.add_argument("-m", "--min-chain-score", dest="min_chain_score", type=int)
+    p.add_argument("-A", dest="match_sc", type=int)
+    p.add_argument("-B", dest="mismatch", type=int)
+    p.add_argument("-s", "--min-dp-score", dest="min_dp_max", type=int)
+    p.add_argument("-I", dest="batch_size")
+    p.add_argument("-K", "--mb-size", dest="mb_size")
+    p.add_argument("-R", dest="rg")
+    p.add_argument("-2", dest="two_io", action="store_true")
+    p.add_argument("-o", dest="output")
+    p.add_argument("-f", dest="occ_frac")
+    p.add_argument("-u", dest="splice_dir")
+    p.add_argument("-z", dest="zdrop")
+    p.add_argument("-O", dest="gap_open")
+    p.add_argument("-E", dest="gap_ext")
+    p.add_argument("-V", "--version", action="store_true")
+    p.add_argument("--seed", type=int)
+    p.add_argument("--bucket-bits", type=int)
+    p.add_argument("--max-chain-skip", type=int)
+    p.add_argument("--max-chain-iter", type=int)
+    p.add_argument("--min-dp-len", type=int)
+    p.add_argument("--splice", action="store_true")
+    p.add_argument("--no-long-join", action="store_true")
+    p.add_argument("--sr", action="store_true")
+    p.add_argument("--frag", choices=["yes", "no"])
+    p.add_argument("--secondary", choices=["yes", "no"])
+    p.add_argument("--cs", nargs="?", const="short")
+    p.add_argument("--MD", action="store_true")
+    p.add_argument("--eqx", action="store_true")
+    p.add_argument("--end-bonus", type=int)
+    p.add_argument("--no-pairing", action="store_true")
+    p.add_argument("--splice-flank", choices=["yes", "no"])
+    p.add_argument("--idx-no-seq", action="store_true")
+    p.add_argument("--end-seed-pen", type=int)
+    p.add_argument("--for-only", action="store_true")
+    p.add_argument("--rev-only", action="store_true")
+    p.add_argument("--heap-sort", choices=["yes", "no"])
+    p.add_argument("--dual", choices=["yes", "no"])
+    p.add_argument("--max-clip-ratio", type=float)
+    p.add_argument("--min-occ-floor", type=int)
+    p.add_argument("--lj-min-ratio", type=float)
+    p.add_argument("--score-N", type=int)
+    p.add_argument("--paf-no-hit", action="store_true")
+    p.add_argument("--split-prefix")
+    p.add_argument("--no-end-flt", action="store_true")
+    p.add_argument("--hard-mask-level", action="store_true")
+    p.add_argument("--max-qlen")
+    p.add_argument("--junc-bed")
+    p.add_argument("--junc-bonus", type=int)
+    p.add_argument("--sam-hit-only", action="store_true")
+    p.add_argument("--chain-gap-scale", type=float)
+    p.add_argument("--alt")
+    p.add_argument("--alt-drop", type=float)
+    p.add_argument("--mask-len")
+    p.add_argument("--print-seeds", action="store_true")
+    p.add_argument("--print-qname", action="store_true")
+    p.add_argument("-C", "--cost-non-gt-ag", dest="noncan", type=int)
+    p.add_argument("--cap-sw-mem", dest="cap_sw_mem")
+    p.add_argument("--no-kalloc", action="store_true",
+                   help="accepted for compatibility (no arena allocator)")
+    p.add_argument("--print-aln-seq", action="store_true")
+    p.add_argument("--chain-backend", choices=["auto", "tpu", "native", "python"])
+    p.add_argument("--router-params", metavar="JSON",
+                   help="trained chaining cost-model constants "
+                        "(scripts/train_router.py)")
+    p.add_argument("--align-backend", choices=["host", "tpu"],
+                   help="send large DP fills to the Pallas ksw2 kernels "
+                        "(bit-exact)")
+    p.add_argument("--seed-backend", choices=["host", "tpu"],
+                   help="tpu = probe the index, build and sort anchors on "
+                        "device, fused with chaining (batch mode only)")
+    p.add_argument("--align-tpu-min-mat", type=int,
+                   help="matrix-size threshold (cells) for the tpu align "
+                        "backend [1M]")
+    p.add_argument("--map-mode", choices=["stream", "batch"],
+                   default="stream",
+                   help="batch = one device chaining dispatch per size "
+                        "bucket of reads (amortizes TPU launch latency)")
+    p.add_argument("--mesh", type=int, metavar="N",
+                   help="shard batched chaining over an N-device data-"
+                        "parallel mesh (implies --map-mode batch)")
+    p.add_argument("--hosts", type=int, metavar="N",
+                   help="multi-host data parallelism: total number of "
+                        "host processes (jax.distributed runtime)")
+    p.add_argument("--host-id", type=int, default=0, metavar="I",
+                   help="this process's host rank in [0, N)")
+    p.add_argument("--coordinator", metavar="ADDR:PORT",
+                   help="jax.distributed coordinator address "
+                        "(host 0's address)")
+    p.add_argument("--host-timeout", type=int, default=600, metavar="SEC",
+                   help="multi-host rendezvous/barrier timeout: if any "
+                        "host dies, the others exit nonzero after SEC "
+                        "seconds with no merged output [600]")
+    p.add_argument("--mmi-cache", action="store_true",
+                   help="when mapping from a .mmi index, persist each "
+                        "part as an MMX sidecar (<index>.mmxcache/): the "
+                        "first load converts, later loads mmap in "
+                        "milliseconds (genome-scale .mmi parsing is "
+                        "sort-bound; see docs/STATUS.md)")
+    p.add_argument("--profile", action="store_true",
+                   help="print a per-stage timing table on exit (the "
+                        "MEASURE_* macros' equivalent, chain_hardware.h:39-45)")
+    p.add_argument("--profile-trace", metavar="DIR",
+                   help="additionally capture a jax.profiler trace of the "
+                        "mapping loop into DIR (implies --profile)")
+    return p
+
+
+def apply_args(args, io: IdxOptions, mo: MapOptions) -> None:
+    if args.k is not None:
+        io.k = args.k
+    if args.w is not None:
+        io.w = args.w
+    if args.H:
+        io.flag |= MM_I_HPC
+    if args.bucket_bits is not None:
+        io.bucket_bits = args.bucket_bits
+    if args.idx_no_seq:
+        io.flag |= MM_I_NO_SEQ
+    if args.batch_size:
+        io.batch_size = _parse_num(args.batch_size)
+    if args.mmi_cache:
+        io.mmi_cache = True
+
+    if args.bw is not None:
+        mo.bw = _parse_num(args.bw)
+    if args.max_gap is not None:
+        mo.max_gap = _parse_num(args.max_gap)
+    if args.max_intron_len is not None and (mo.flag & MM_F_SPLICE):
+        mo.max_gap_ref = mo.bw = _parse_num(args.max_intron_len)
+    if args.max_frag_len is not None:
+        mo.max_frag_len = _parse_num(args.max_frag_len)
+    if args.best_n is not None:
+        mo.best_n = args.best_n
+    if args.pri_ratio is not None:
+        mo.pri_ratio = args.pri_ratio
+    if args.mask_level is not None:
+        mo.mask_level = args.mask_level
+    if args.c:
+        mo.flag |= MM_F_OUT_CG | MM_F_CIGAR
+    if args.D:
+        mo.flag |= MM_F_NO_DIAG
+    if args.P:
+        mo.flag |= MM_F_ALL_CHAINS
+    if args.X:
+        mo.flag |= MM_F_ALL_CHAINS | MM_F_NO_DIAG | MM_F_NO_DUAL | MM_F_NO_LJOIN
+    if args.a:
+        mo.flag |= MM_F_OUT_SAM | MM_F_CIGAR
+    if args.Q:
+        mo.flag |= MM_F_NO_QUAL
+    if args.Y:
+        mo.flag |= MM_F_SOFTCLIP
+    if args.L:
+        mo.flag |= MM_F_LONG_CIGAR
+    if args.y:
+        mo.flag |= MM_F_COPY_COMMENT
+    if args.sdust_thres is not None:
+        mo.sdust_thres = args.sdust_thres
+    if args.noncan is not None:
+        mo.noncan = args.noncan
+    if args.cap_sw_mem is not None:
+        mo.max_sw_mat = _parse_num(args.cap_sw_mem)
+    if args.print_qname:
+        mo.dbg_print_qname = True
+    if args.min_cnt is not None:
+        mo.min_cnt = args.min_cnt
+    if args.min_chain_score is not None:
+        mo.min_chain_score = args.min_chain_score
+    if args.match_sc is not None:
+        mo.a = args.match_sc
+    if args.mismatch is not None:
+        mo.b = args.mismatch
+    if args.min_dp_max is not None:
+        mo.min_dp_max = args.min_dp_max
+    if args.mb_size:
+        mo.mini_batch_size = _parse_num(args.mb_size)
+    if args.seed is not None:
+        mo.seed = args.seed
+    if args.max_chain_skip is not None:
+        mo.max_chain_skip = args.max_chain_skip
+    if args.max_chain_iter is not None:
+        mo.max_chain_iter = args.max_chain_iter
+    if args.min_dp_len is not None:
+        mo.min_ksw_len = args.min_dp_len
+    if args.splice:
+        mo.flag |= MM_F_SPLICE
+    if args.no_long_join:
+        mo.flag |= MM_F_NO_LJOIN
+    if args.sr:
+        mo.flag |= MM_F_SR
+    if args.frag == "yes":
+        mo.flag |= MM_F_FRAG_MODE
+    elif args.frag == "no":
+        mo.flag &= ~MM_F_FRAG_MODE
+    if args.secondary == "no":
+        mo.flag |= MM_F_NO_PRINT_2ND
+    elif args.secondary == "yes":
+        mo.flag &= ~MM_F_NO_PRINT_2ND
+    if args.cs is not None:
+        mo.flag |= MM_F_OUT_CS | MM_F_CIGAR
+        if args.cs == "long":
+            mo.flag |= MM_F_OUT_CS_LONG
+        elif args.cs == "none":
+            mo.flag &= ~MM_F_OUT_CS
+    if args.MD:
+        mo.flag |= MM_F_OUT_MD
+    if args.eqx:
+        mo.flag |= MM_F_EQX
+    if args.end_bonus is not None:
+        mo.end_bonus = args.end_bonus
+    if args.no_pairing:
+        mo.flag |= MM_F_INDEPEND_SEG
+    if args.end_seed_pen is not None:
+        mo.anchor_ext_shift = args.end_seed_pen
+    if args.for_only:
+        mo.flag |= MM_F_FOR_ONLY
+    if args.rev_only:
+        mo.flag |= MM_F_REV_ONLY
+    if args.heap_sort == "yes":
+        mo.flag |= MM_F_HEAP_SORT
+    elif args.heap_sort == "no":
+        mo.flag &= ~MM_F_HEAP_SORT
+    if args.dual == "no":
+        mo.flag |= MM_F_NO_DUAL
+    elif args.dual == "yes":
+        mo.flag &= ~MM_F_NO_DUAL
+    if args.max_clip_ratio is not None:
+        mo.max_clip_ratio = args.max_clip_ratio
+    if args.min_occ_floor is not None:
+        mo.min_mid_occ = args.min_occ_floor
+    if args.lj_min_ratio is not None:
+        mo.min_join_flank_ratio = args.lj_min_ratio
+    if args.score_N is not None:
+        mo.sc_ambi = args.score_N
+    if args.paf_no_hit:
+        mo.flag |= MM_F_PAF_NO_HIT
+    if args.split_prefix:
+        mo.split_prefix = args.split_prefix
+    if args.no_end_flt:
+        mo.flag |= MM_F_NO_END_FLT
+    if args.hard_mask_level:
+        mo.flag |= MM_F_HARD_MLEVEL
+    if args.max_qlen:
+        mo.max_qlen = _parse_num(args.max_qlen)
+    if args.junc_bonus is not None:
+        mo.junc_bonus = args.junc_bonus
+    if args.sam_hit_only:
+        mo.flag |= MM_F_SAM_HIT_ONLY
+    if args.chain_gap_scale is not None:
+        mo.chain_gap_scale = args.chain_gap_scale
+    if args.alt_drop is not None:
+        mo.alt_drop = args.alt_drop
+    if args.mask_len:
+        mo.mask_len = _parse_num(args.mask_len)
+    if args.occ_frac:
+        x = float(args.occ_frac.split(",")[0])
+        if x < 1.0:
+            mo.mid_occ_frac = x
+            mo.mid_occ = 0
+        else:
+            mo.mid_occ = int(x + 0.499)
+        if "," in args.occ_frac:
+            mo.max_occ = int(float(args.occ_frac.split(",")[1]) + 0.499)
+    if args.splice_dir:
+        d = args.splice_dir[0]
+        if d == "b":
+            mo.flag |= MM_F_SPLICE_FOR | MM_F_SPLICE_REV
+        elif d == "f":
+            mo.flag |= MM_F_SPLICE_FOR
+            mo.flag &= ~MM_F_SPLICE_REV
+        elif d == "r":
+            mo.flag |= MM_F_SPLICE_REV
+            mo.flag &= ~MM_F_SPLICE_FOR
+        elif d == "n":
+            mo.flag &= ~(MM_F_SPLICE_FOR | MM_F_SPLICE_REV)
+    if args.zdrop:
+        parts = args.zdrop.split(",")
+        mo.zdrop = mo.zdrop_inv = int(parts[0])
+        if len(parts) > 1:
+            mo.zdrop_inv = int(parts[1])
+    if args.gap_open:
+        parts = args.gap_open.split(",")
+        mo.q = mo.q2 = int(parts[0])
+        if len(parts) > 1:
+            mo.q2 = int(parts[1])
+    if args.gap_ext:
+        parts = args.gap_ext.split(",")
+        mo.e = mo.e2 = int(parts[0])
+        if len(parts) > 1:
+            mo.e2 = int(parts[1])
+    if args.chain_backend:
+        mo.chain_backend = args.chain_backend
+    if args.align_backend:
+        mo.align_backend = args.align_backend
+    if args.seed_backend:
+        mo.seed_backend = args.seed_backend
+    if args.align_tpu_min_mat is not None:
+        mo.align_tpu_min_mat = args.align_tpu_min_mat
+    if args.print_seeds:  # forces -t 1 like main.c:194
+        mo.dbg_print_seed = True
+        args.t = 1
+    if args.print_aln_seq:  # main.c:198
+        mo.dbg_print_aln_seq = True
+        args.t = 1
+
+
+def _mmi_cached_parts(target: str):
+    """`--mmi-cache`: serve .mmi parts from an MMX sidecar directory
+    (<target>.mmxcache/), building it on the first load. Genome-scale
+    .mmi parsing is bound by the global key sort (~400 ns/key; the
+    reference rebuilds per-bucket khashes instead, index.c:481-534) —
+    the MMX sidecar mmaps in milliseconds. The cache key is the .mmi's
+    (size, mtime); a stale or unwritable cache degrades to plain
+    parsing, never to an error."""
+    import json
+    from .index.build import load_index, save_index
+    from .index.mmi import read_mmi_parts
+    d = target + ".mmxcache"
+    meta_p = os.path.join(d, "meta.json")
+    st = os.stat(target)
+    sig = [st.st_size, st.st_mtime_ns]
+    try:
+        with open(meta_p) as fh:
+            meta = json.load(fh)
+        if meta.get("sig") == sig:
+            # load EVERY part before yielding any: a missing/torn part
+            # file must fall through to the rebuild path cleanly, not
+            # after part 0's mappings were already emitted
+            parts = [load_index(os.path.join(d, "part%d.mmx" % i))
+                     for i in range(meta["n_parts"])]
+            yield from parts
+            return
+    except Exception:
+        pass
+    writable = True
+    try:
+        os.makedirs(d, exist_ok=True)
+    except Exception:
+        writable = False
+    n = 0
+    pid = os.getpid()
+    for mi in read_mmi_parts(target):
+        if writable:
+            # tmp + atomic replace: concurrent first runs and readers
+            # holding mmaps of an old cache each see a complete file
+            # (the old inode stays alive under its maps)
+            try:
+                tmp = os.path.join(d, ".part%d.%d.tmp" % (n, pid))
+                save_index(mi, tmp)
+                os.replace(tmp, os.path.join(d, "part%d.mmx" % n))
+            except Exception:
+                writable = False
+        n += 1
+        yield mi
+    if writable:
+        try:
+            tmp = meta_p + ".%d.tmp" % pid
+            with open(tmp, "w") as fh:
+                json.dump({"sig": sig, "n_parts": n}, fh)
+            os.replace(tmp, meta_p)
+        except Exception:
+            pass
+
+
+def index_parts(target: str, io: IdxOptions, n_threads: int = 1):
+    """Generator over index parts (mm_idx_reader semantics, index.c:560-605).
+    A prebuilt .mmi yields its stored parts; a FASTA is split into ~`-I`
+    (batch_size) base parts at mini-batch granularity (index.c:280-302,
+    bseq.c mm_bseq_read chunking)."""
+    with open(target, "rb") as f:
+        magic = f.read(4)
+    if magic == MAGIC:
+        from .index.mmi import read_mmi_parts
+        if io.mmi_cache:
+            yield from _mmi_cached_parts(target)
+        else:
+            yield from read_mmi_parts(target)
+        return
+    if magic == b"MMX1" or (magic == b"PK\x03\x04" and
+                            target.endswith(".npz")):
+        # native device-ready index (the .mmi analogue for the TPU build,
+        # SURVEY §5 checkpoint/resume: 'serialized device-ready index
+        # arrays'); single-part by construction
+        from .index.build import load_index
+        yield load_index(target)
+        return
+    it = iter(read_fastx(target))
+    pending = None
+    # the reference clamps the mini-batch to the part size (index.c:359),
+    # so small -I values actually split parts
+    mini = min(io.mini_batch_size, io.batch_size)
+    while True:
+        part, sum_len = [], 0
+        while sum_len <= io.batch_size:
+            mb, mb_len = [], 0
+            while mb_len < mini:
+                r = pending if pending is not None else next(it, None)
+                pending = None
+                if r is None:
+                    break
+                mb.append(r)
+                mb_len += len(r.seq)
+            if not mb:
+                break
+            part.extend(mb)
+            sum_len += mb_len
+        if not part:
+            return
+        yield build_index([r.name for r in part], [r.seq for r in part],
+                          w=io.w, k=io.k, flag=io.flag,
+                          bucket_bits=io.bucket_bits, n_threads=n_threads)
+
+
+def _revcomp_bseq(s) -> None:
+    """mm_revcomp_bseq: reverse-complement the bases, reverse the quals."""
+    from .io.bseq import revcomp as _rc
+    s.seq = _rc(s.seq)
+    if s.qual:
+        s.qual = s.qual[::-1]
+
+
+def emit(mi, mo: MapOptions, frag, res, out) -> None:
+    """Ordered per-fragment emission (map.c:563-618 step 2)."""
+    n_seg = len(frag)
+    n_regss = [len(r) for r in res.regs]
+    rep_lens = getattr(res, "rep_lens", None)
+    for i, seq in enumerate(frag):
+        rep_len = rep_lens[i] if rep_lens else res.rep_len
+        regs = res.regs[i]
+        if regs:
+            for j, r in enumerate(regs):
+                if (mo.flag & MM_F_NO_PRINT_2ND) and r.id != r.parent:
+                    continue
+                if mo.flag & MM_F_OUT_SAM:
+                    print(write_sam(mi, seq, i, j, n_seg, n_regss, res.regs,
+                                    mo.flag, rep_len), file=out)
+                else:
+                    print(write_paf(mi, seq.name, seq.l_seq, r, mo.flag,
+                                    rep_len, seq.comment, seq.seq), file=out)
+        elif (mo.flag & MM_F_PAF_NO_HIT) or ((mo.flag & MM_F_OUT_SAM) and
+                                             not (mo.flag & MM_F_SAM_HIT_ONLY)):
+            if mo.flag & MM_F_OUT_SAM:
+                print(write_sam(mi, seq, i, -1, n_seg, n_regss, res.regs,
+                                mo.flag, rep_len), file=out)
+            else:
+                print(write_paf(mi, seq.name, seq.l_seq, None, mo.flag,
+                                rep_len, seq.comment), file=out)
+
+
+# ---- the port's driver ----
 
 
 def _unsupported(args, mo: MapOptions) -> Optional[str]:
@@ -44,19 +550,22 @@ def _unsupported(args, mo: MapOptions) -> Optional[str]:
     if args.chain_backend:
         return ("--chain-backend (per-task routing of the stream mode, "
                 "ROADMAP M3; the port always chains in batch mode)")
+    if args.router_params:
+        return ("--router-params (the cost model of the stream mode's "
+                "per-task routing, ROADMAP M3)")
     if args.map_mode == "stream":
         return "--map-mode stream (per-task routing, ROADMAP M3)"
     if args.split_prefix:
         return "--split-prefix (ROADMAP M1)"
     if args.profile_trace:
         return "--profile-trace (torch.profiler tracing, ROADMAP M10)"
-    if mo.flag & MM_F_SPLICE:
-        return "-x splice / --splice (cDNA chaining, ROADMAP M4)"
-    if (mo.flag & MM_F_FRAG_MODE) and not (mo.flag & MM_F_INDEPEND_SEG):
-        # one file or two: reads sharing a name form one multi-segment task
-        return ("fragment mode (-x sr, --frag=yes; multi-segment chaining, "
-                "ROADMAP M4; --frag=no or --no-pairing maps each segment "
-                "alone)")
+    if (mo.flag & MM_F_SPLICE) and (mo.flag & MM_F_CIGAR) and \
+            mo.align_backend == "gpu":
+        # the splice fills need the exts2 kernel: sending them to the host
+        # under `gpu` would be a hidden fallback
+        return ("-x splice / --splice with -a/-c and --align-backend gpu "
+                "(the splice extension kernel, ROADMAP M6; "
+                "--align-backend host runs the splice fills on the host)")
     return None
 
 
@@ -173,7 +682,7 @@ def _run(args, argv, io, mo: MapOptions, device, out, chain_fn,
             cmdline = "minimap2 " + " ".join(argv)
             print(sam_header(mi if last else None, args.rg, MM_VERSION,
                              cmdline), file=out)
-            from mm2tpu.io import format as _fmt
+            from .io import format as _fmt
             if _fmt._RG_FAILED:  # bad -R: header printed, then exit 1
                 return 1
             if not last:
@@ -181,7 +690,7 @@ def _run(args, argv, io, mo: MapOptions, device, out, chain_fn,
                       "be outputted. Please use --split-prefix.",
                       file=sys.stderr)
         if args.junc_bed:
-            from mm2tpu.index.bed import read_bed
+            from .index.bed import read_bed
             mi.junc = read_bed(mi, args.junc_bed, read_junc=True)
         if args.alt:
             n_alt = 0

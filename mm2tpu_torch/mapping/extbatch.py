@@ -1,45 +1,94 @@
 """Cross-read batched extension on a torch device.
 
-Counterpart of `mm2tpu/mapping/extbatch.py`: the JAX package's
-`ExtBatcher` groups the extd2 fills that concurrently aligned reads post
-(`align_pair` reaches it through `extbatch.current()`, installed by
-`worker_scope`) and flushes a group when every worker waits or a group
-is full. Only the flush changes: a group runs through the port's
-`ops.ksw2_extd2.extd2_batch` on the batcher's device, and groups are
-flushed one at a time, so that fills gather while the device works.
+Counterpart of `mm2tpu/mapping/extbatch.py`, whose `ExtBatcher`,
+`current()` and `worker_scope` are merged here. align1's control flow is
+sequential per read, so batching across reads uses threads: N reads run
+align1 concurrently; each `align_pair` fill of at least `min_cells`
+cells posts a request to the `TorchExtBatcher` that `worker_scope`
+installed on its thread (`current()`) and blocks on its future. A group
+(fills of one parameter set: mat, gaps, w, zdrop, flag) is flushed when
+every live worker waits or the group is full. A flush runs through the
+port's `ops.ksw2_extd2.extd2_batch` on the batcher's device, and groups
+are flushed one at a time, so that fills gather while the device works.
+Smaller fills run inline on the host's native extension.
 """
 from __future__ import annotations
 
 import contextlib
+import threading
+from concurrent.futures import Future
+from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
-
-from mm2tpu.mapping.extbatch import ExtBatcher
 
 from ..ops.ksw2_extd2 import extd2_batch
 
 
-class TorchExtBatcher(ExtBatcher):
-    """`ExtBatcher` whose flushes run on `device` ("cuda" or "cpu").
-    `ext_fn` replaces the extension function of every flush (see
-    `extd2_batch`'s `fn`)."""
+class TorchExtBatcher:
+    """Batching service for extd2 fills across concurrently aligned reads,
+    whose flushes run on `device` ("cuda" or "cpu"). `ext_fn` replaces the
+    extension function of every flush (see `extd2_batch`'s `fn`)."""
 
     def __init__(self, device, max_batch: int = 64, min_cells: int = 0,
                  ext_fn=None):
-        super().__init__(max_batch=max_batch, min_cells=min_cells)
         self.device = torch.device(device)
+        self.max_batch = max_batch
+        self.min_cells = min_cells
         self.ext_fn = ext_fn
-        self._flushing = False   # a group is on the device (under _lock)
+        self._lock = threading.Condition()
+        self._pending: Dict[tuple, List[Tuple[tuple, Future]]] = {}
+        self._n_pending = 0
+        self._active = 0          # workers currently inside align work
+        self._blocked = 0         # workers waiting on a future
+        self._flushing = False    # a group is on the device (under _lock)
+        self.n_dispatches = 0
+        self.n_batched = 0
 
+    # -- worker lifecycle ---------------------------------------------------
+    def worker_enter(self):
+        with self._lock:
+            self._active += 1
+
+    def worker_exit(self):
+        with self._lock:
+            self._active -= 1
+            self._maybe_flush_locked()
+
+    # -- fill submission ----------------------------------------------------
+    def submit(self, qseq, tseq, mat, q, e, q2, e2, w, zdrop, end_bonus,
+               flag):
+        """Blocking: returns the ExtzResult once a flush covers this fill."""
+        key = (mat.tobytes(), q, e, q2, e2, w, zdrop, end_bonus, flag)
+        fut: Future = Future()
+        with self._lock:
+            self._pending.setdefault(key, []).append(
+                ((np.asarray(qseq, np.uint8), np.asarray(tseq, np.uint8),
+                  mat), fut))
+            self._n_pending += 1
+            self._blocked += 1
+            self._maybe_flush_locked()
+            while not fut.done():
+                # another worker's flush may complete us while we wait
+                self._lock.wait(timeout=0.05)
+                self._maybe_flush_locked()
+        with self._lock:
+            self._blocked -= 1
+        err = fut.exception()
+        if err is not None:
+            raise err
+        return fut.result()
+
+    # -- dispatch -----------------------------------------------------------
     def _maybe_flush_locked(self):
-        """`ExtBatcher._maybe_flush_locked` (flush the largest group when
-        every worker waits or a group is full), one flush at a time: while
-        a group runs, the fills that arrive wait in their groups, and the
-        next flush, started by a waiter when this one ends, takes them
-        together. Without this, a waiter counted as blocked after its
-        fill came back makes every new fill a flush of its own: the
-        1000-read smoke map ran 49,451 flushes for 49,571 fills. Called
-        with the lock held; the flush runs outside it."""
+        """Flush the largest group when every worker waits or a group is
+        full, one flush at a time: while a group runs, the fills that
+        arrive wait in their groups, and the next flush, started by a
+        waiter when this one ends, takes them together. Without this, a
+        waiter counted as blocked after its fill came back makes every
+        new fill a flush of its own: the 1000-read smoke map ran 49,451
+        flushes for 49,571 fills. Called with the lock held; the flush
+        runs outside it."""
         if self._flushing or self._n_pending == 0:
             return
         full = any(len(v) >= self.max_batch for v in self._pending.values())
@@ -82,3 +131,30 @@ class TorchExtBatcher(ExtBatcher):
             for _, fut in group:
                 if not fut.done():
                     fut.set_exception(err)
+
+
+_TLS = threading.local()
+
+
+def current() -> Optional[TorchExtBatcher]:
+    """The batcher installed on this thread by `worker_scope`, if any."""
+    return getattr(_TLS, "batcher", None)
+
+
+class worker_scope:
+    """Context manager installing `batcher` for align_pair on this thread."""
+
+    def __init__(self, batcher: Optional[TorchExtBatcher]):
+        self._b = batcher
+
+    def __enter__(self):
+        if self._b is not None:
+            _TLS.batcher = self._b
+            self._b.worker_enter()
+        return self._b
+
+    def __exit__(self, *exc):
+        if self._b is not None:
+            _TLS.batcher = None
+            self._b.worker_exit()
+        return False

@@ -84,6 +84,9 @@ def load() -> ctypes.CDLL:
     lib.mm2tpu_chain_v3.argtypes = [vp] * 7 + [i32] * 6 + [
         ctypes.c_float, i32, vp]
     lib.mm2tpu_chain_v3.restype = i32
+    lib.mm2tpu_chain_v2.argtypes = [vp] * 8 + [i32] * 6 + [
+        ctypes.c_float, i32, i32, i32, i32, vp]
+    lib.mm2tpu_chain_v2.restype = i32
     lib.mm2tpu_ksw2_extd2.argtypes = [vp] * 9 + [i32] * 18 + [vp]
     lib.mm2tpu_ksw2_extd2.restype = i32
     return lib

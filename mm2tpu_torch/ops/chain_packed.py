@@ -2,11 +2,15 @@
 
 Counterpart of `mm2tpu/ops/chain_packed.py`: the host packs each task's
 (x, y) uint64 anchor words into four int32 planes (hi, lo, yhi, ylo);
-on the device `derive_qss` extracts qi/span from y, the v3 kernel
-scores the batch, and `p_rel` compresses p to a relative int16 for the
-copy back. The 8 B delta wire of the JAX package (`pack_tasks8`,
-`_decode8`) is not ported: it was built for a narrow TPU link and yields
-the same f/prel as this wire.
+on the device `derive_qss` extracts qi/span/sid from y, the kernel of
+the task's contract scores the batch, and `p_rel` compresses p to a
+relative int16 for the copy back. As in the JAX package, a
+single-segment non-cDNA batch goes to the v3 kernel (K1, `chain_v3`)
+and every other batch to the v2 kernel (K2, `chain_v2`); the JAX
+package's `B % 8 == 0` clause always holds for the port's batch sizes.
+The 8 B delta wire of the JAX package (`pack_tasks8`, `_decode8`) is not
+ported: it was built for a narrow TPU link and yields the same f/prel
+as this wire.
 
 `pack_tasks16`, `unpack_prel` and `v_carry_host` are NumPy code copied
 verbatim from the JAX package, whose modules import jax at the top.
@@ -16,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import chain_v3
+from . import chain_v2, chain_v3
 from .chain_v3 import WINDOW
 
 
@@ -35,25 +39,45 @@ def p_rel(p):
     return torch.where(p >= 0, i - p, 0).to(torch.int16)
 
 
+def chain_scores(hi, lo, qi, span, sid, n, avg, *, max_dist_x: int,
+                 max_dist_y: int, bw: int, iter_cap: int, gap_scale: float,
+                 is_cdna: bool, n_segs: int, plain: bool = False):
+    """Chaining scores (f, p), (B, N) int32, by contract: the
+    single-segment non-cDNA contract on `chain_v3` (K1), every other on
+    `chain_v2` (K2). Their wrappers run the plain versions on CPU
+    tensors; `plain=True` runs the plain versions on any device."""
+    kw = dict(max_dist_x=max_dist_x, max_dist_y=max_dist_y, bw=bw,
+              iter_cap=iter_cap, gap_scale=gap_scale)
+    if not is_cdna and n_segs == 1:
+        fn = chain_v3.chain_scores_v3_reference if plain \
+            else chain_v3.chain_scores_v3
+        return fn(hi, lo, qi, span, n, avg, **kw)
+    fn = chain_v2.chain_scores_v2_reference if plain \
+        else chain_v2.chain_scores_v2
+    return fn(hi, lo, qi, span, sid, n, avg, is_cdna=is_cdna,
+              n_segs=n_segs, **kw)
+
+
+def chain_scores_plain(*args, **kw):
+    """`chain_scores` through the plain versions, on any device."""
+    return chain_scores(*args, plain=True, **kw)
+
+
 def chain_scores_packed(hi, lo, yhi, ylo, n, avg, *, max_dist_x: int,
                         max_dist_y: int, bw: int, iter_cap: int,
                         gap_scale: float, is_cdna: bool, n_segs: int,
                         chain_fn=None):
     """Batched chaining on the wire planes: (B, N) int32 hi/lo/yhi/ylo,
     (B, 1) n and avg. Returns (f int32, prel int16), both (B, N).
-    `chain_fn` defaults to `chain_v3.chain_scores_v3`; a caller may pass
-    `chain_v3.chain_scores_v3_reference` to run the plain version on any
-    device. Multi-segment and cDNA scoring (the v2 contract) raise."""
-    if is_cdna or n_segs != 1:
-        raise NotImplementedError(
-            "chaining with is_cdna=%s, n_segs=%d needs the v2 contract "
-            "(kernel K2, ROADMAP M4), which is not ported yet"
-            % (is_cdna, n_segs))
-    fn = chain_v3.chain_scores_v3 if chain_fn is None else chain_fn
-    qi, span, _ = derive_qss(yhi, ylo)
-    f, p = fn(hi, lo, qi.contiguous(), span.contiguous(), n, avg,
-              max_dist_x=max_dist_x, max_dist_y=max_dist_y, bw=bw,
-              iter_cap=iter_cap, gap_scale=gap_scale)
+    `chain_fn` (default `chain_scores`) takes `chain_scores`'s arguments;
+    `chain_scores_plain` runs the plain versions of both contracts on any
+    device."""
+    fn = chain_scores if chain_fn is None else chain_fn
+    qi, span, sid = derive_qss(yhi, ylo)
+    f, p = fn(hi, lo, qi.contiguous(), span.contiguous(), sid.contiguous(),
+              n, avg, max_dist_x=max_dist_x, max_dist_y=max_dist_y, bw=bw,
+              iter_cap=iter_cap, gap_scale=gap_scale, is_cdna=is_cdna,
+              n_segs=n_segs)
     return f, p_rel(p)
 
 
@@ -83,7 +107,7 @@ def pack_tasks16(tasks, N: int):
     """Pack anchor arrays into the four 16 B/anchor wire planes +
     (n, avg) scalars. Padding rows carry the never-matching hi sentinel
     (pack_anchors:202)."""
-    from mm2tpu.ops.chain_ref import avg_qspan_scaled
+    from .chain_ref import avg_qspan_scaled
     B = len(tasks)
     hi = np.full((B, N), -0x7FFFFF0, np.int32)
     lo = np.zeros((B, N), np.int32)
@@ -124,5 +148,6 @@ def v_carry_host(f: np.ndarray, p: np.ndarray) -> np.ndarray:
     return v
 
 
-__all__ = ["chain_scores_packed", "derive_qss", "p_rel", "planes_to_torch",
-           "pack_tasks16", "unpack_prel", "v_carry_host", "WINDOW"]
+__all__ = ["chain_scores", "chain_scores_packed", "chain_scores_plain",
+           "derive_qss", "p_rel", "planes_to_torch", "pack_tasks16",
+           "unpack_prel", "v_carry_host", "WINDOW"]

@@ -3,7 +3,7 @@
 Counterpart of `mm2tpu/ops/chain_pallas_v3.py` (`_chain_kernel_v3`,
 `chain_scores_device_v3`) with the uniseg branch of
 `mm2tpu/ops/chain_pallas_v2.py::_pair_key` and `_ilog2_tile`. The
-contract is the Pallas kernel's, bit for bit; `csrc/chain_v3.cu` states
+contract is the Pallas kernel's, bit for bit; `csrc/chain.cu` states
 it in full.
 
 - `chain_scores_v3_reference`: the plain PyTorch version, serial over
@@ -97,7 +97,10 @@ def chain_scores_v3_reference(hi, lo, qi, span, n, avg, *, max_dist_x: int,
     return f, p
 
 
-def _check_inputs(hi, lo, qi, span, avg) -> None:
+def _check_inputs(hi, lo, qi, span, avg, sid=None) -> None:
+    """What the kernels take: contiguous (B, N) int32 planes (and `sid`
+    for the general contract) with N % 1024 == 0, a float32 avg of B
+    values, all on one device."""
     dev = hi.device
     if hi.dim() != 2:
         raise ValueError("hi must be (B, N), got %s" % (tuple(hi.shape),))
@@ -105,7 +108,10 @@ def _check_inputs(hi, lo, qi, span, avg) -> None:
     if B < 1 or N < WINDOW or N % WINDOW != 0:
         raise ValueError("need B >= 1 and N a multiple of %d, got (%d, %d)"
                          % (WINDOW, B, N))
-    for name, t in (("hi", hi), ("lo", lo), ("qi", qi), ("span", span)):
+    planes = [("hi", hi), ("lo", lo), ("qi", qi), ("span", span)]
+    if sid is not None:
+        planes.append(("sid", sid))
+    for name, t in planes:
         if t.device != dev or t.dtype != torch.int32 or \
                 tuple(t.shape) != (B, N) or not t.is_contiguous():
             raise ValueError("%s must be a contiguous (%d, %d) int32 tensor "
@@ -122,7 +128,8 @@ def chain_scores_v3(hi, lo, qi, span, n, avg, *, max_dist_x: int,
                     max_dist_y: int, bw: int, iter_cap: int,
                     gap_scale: float):
     """Chaining scores (f, p), (B, N) int32. CPU tensors run the plain
-    version; CUDA tensors launch `csrc/chain_v3.cu` on the current stream
+    version; CUDA tensors launch `csrc/chain.cu`'s `mm2tpu_chain_v3` on
+    the current stream
     (B >= 1, N % 1024 == 0, contiguous int32 planes, float32 avg)."""
     global launches
     kw = dict(max_dist_x=max_dist_x, max_dist_y=max_dist_y, bw=bw,

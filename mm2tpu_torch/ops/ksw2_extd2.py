@@ -36,12 +36,10 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from mm2tpu.ops.ksw2_ref import (KSW_EZ_APPROX_DROP, KSW_EZ_APPROX_MAX,
-                                 KSW_EZ_EXTZ_ONLY, KSW_EZ_REV_CIGAR,
-                                 KSW_EZ_RIGHT, KSW_NEG_INF, ExtzResult,
-                                 _push_cigar)
-
 from ..utils import profiling
+from .ksw2_ref import (KSW_EZ_APPROX_DROP, KSW_EZ_APPROX_MAX,
+                       KSW_EZ_EXTZ_ONLY, KSW_EZ_REV_CIGAR, KSW_EZ_RIGHT,
+                       KSW_NEG_INF, ExtzResult, _push_cigar)
 
 # ---------------------------------------------------------------------------
 # copied verbatim from mm2tpu/ops/ksw2_pallas.py:60-62 (regs columns)

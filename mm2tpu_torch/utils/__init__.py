@@ -1,9 +1,10 @@
-"""Host utilities the port shares with `mm2tpu`, re-exported so that its
-callers reach them through the port: the native C++ runtime (`native`),
-the stage profiler behind `--profile` (`profiling`) and the `[M::...]`
-logger (`timing`). All three are framework-free.
+"""Host utilities of the port, re-exported so that its callers reach them
+as `mm2tpu_torch.utils.X`: the native C++ runtime (`native`), the stage
+profiler behind `--profile` (`profiling`) and the `[M::...]` logger
+(`timing`). All are the port's own copies of the JAX package's
+framework-free modules (`hashing` is one more, imported directly).
 """
-from mm2tpu.native import lib as native
-from mm2tpu.utils import profiling, timing
+from ..native import lib as native
+from . import profiling, timing
 
 __all__ = ["native", "profiling", "timing"]

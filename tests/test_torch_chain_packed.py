@@ -1,6 +1,7 @@
 """The port's wire-plane chaining (mm2tpu_torch.ops.chain_packed) against
 mm2tpu.ops.chain_packed on the same pack_tasks16 planes, handed to both
-through planes_to_torch. f and prel must be array-equal (tolerance 0:
+through planes_to_torch, under both contracts (v3: single-segment
+non-cDNA; v2: the rest). f and prel must be array-equal (tolerance 0:
 integer DP), and the NumPy helpers copied into the port must equal their
 originals."""
 import numpy as np
@@ -9,8 +10,9 @@ import torch
 
 import mm2tpu.ops.chain_packed as jax_packed
 from mm2tpu.ops.chain_pallas_v2 import v_carry_host as jax_v_carry_host
-from mm2tpu_torch.ops import chain_packed
+from mm2tpu_torch.ops import chain_packed, chain_v2, chain_v3
 from test_chain_pallas import synth_anchors
+from test_torch_chain_v2 import two_segment
 
 N = 2048
 
@@ -79,10 +81,20 @@ def test_p_rel_and_derive_qss_match_jax():
 
 
 @pytest.mark.parametrize("is_cdna,n_segs", [(True, 1), (False, 2)])
-def test_v2_contract_raises(tasks, is_cdna, n_segs):
-    planes = chain_packed.planes_to_torch(
-        *chain_packed.pack_tasks16(tasks, N), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP M4"):
-        chain_packed.chain_scores_packed(
-            *planes, max_dist_x=5000, max_dist_y=5000, bw=500,
-            iter_cap=5000, gap_scale=1.0, is_cdna=is_cdna, n_segs=n_segs)
+def test_v2_contract_matches_jax(tasks, is_cdna, n_segs):
+    """Spliced-read (cDNA) and read-pair (two-segment) batches go to the
+    v2 contract in both packages, with the same f and prel."""
+    if n_segs > 1:
+        tasks = [two_segment(a, 90 + b) for b, a in enumerate(tasks)]
+    planes = jax_packed.pack_tasks16(tasks, N)
+    cfg = dict(max_dist_x=5000, max_dist_y=5000, bw=500, iter_cap=5000,
+               gap_scale=1.0, is_cdna=is_cdna, n_segs=n_segs)
+    f_ref, pr_ref = jax_packed.chain_scores_packed(*planes, interpret=True,
+                                                   **cfg)
+    calls, calls3 = chain_v2.reference_calls, chain_v3.reference_calls
+    f, pr = chain_packed.chain_scores_packed(
+        *chain_packed.planes_to_torch(*planes, "cpu"), **cfg)
+    assert chain_v2.reference_calls == calls + 1
+    assert chain_v3.reference_calls == calls3
+    np.testing.assert_array_equal(f.numpy(), np.asarray(f_ref))
+    np.testing.assert_array_equal(pr.numpy(), np.asarray(pr_ref))

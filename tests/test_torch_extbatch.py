@@ -15,10 +15,9 @@ import numpy as np
 import pytest
 import torch
 
-from mm2tpu.mapping.extbatch import worker_scope
 from mm2tpu.ops import ksw2_ref as K
 from mm2tpu_torch.cli import main
-from mm2tpu_torch.mapping.extbatch import TorchExtBatcher
+from mm2tpu_torch.mapping.extbatch import TorchExtBatcher, worker_scope
 from mm2tpu_torch.ops import ksw2_extd2 as X
 from mm2tpu_torch.utils import profiling
 from test_ksw2_pallas import FIELDS

@@ -1,5 +1,6 @@
-"""mm2tpu_torch never imports jax, and `--device cuda` without a card fails
-loudly instead of falling back to the CPU."""
+"""mm2tpu_torch imports neither jax nor the JAX package `mm2tpu`, builds
+and loads its own native library, and `--device cuda` without a card
+fails loudly instead of falling back to the CPU."""
 import pathlib
 import subprocess
 import sys
@@ -9,13 +10,15 @@ import torch
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
-# refuses every import of jax (or a submodule) in the child interpreter
+# refuses every import of jax and of the JAX package mm2tpu (or of a
+# submodule of either) in the child interpreter; mm2tpu_torch is allowed
 BLOCK_JAX = """
 import sys
 class _NoJax:
     def find_spec(self, name, path=None, target=None):
-        if name == "jax" or name.startswith("jax."):
-            raise ImportError("jax is blocked in this process")
+        top = name.split(".")[0]
+        if top in ("jax", "mm2tpu"):
+            raise ImportError("%s is blocked in this process" % name)
         return None
 sys.meta_path.insert(0, _NoJax())
 """
@@ -38,37 +41,93 @@ def workload(tmp_path_factory):
                     n_reads=12, mean_len=2500, seed=3)
 
 
-def test_every_module_imports_and_cli_runs_without_jax(workload, tmp_path):
+@pytest.fixture(scope="module")
+def pairs_and_spliced(workload, tmp_path_factory):
+    """20 read pairs (two FASTQ files) and 6 spliced reads from the
+    workload's genome."""
+    from test_torch_cli_sr_splice import load_chip_smoke
+    chip_smoke = load_chip_smoke()
+    ref, _ = workload
+    d = tmp_path_factory.mktemp("sr_splice")
+    return (chip_smoke.make_sr_pairs(ref, str(d / "sr"), 20, seed=5),
+            chip_smoke.make_spliced_reads(ref, str(d / "tx.fa"), 6, seed=6))
+
+
+def test_every_module_imports_and_cli_runs_without_jax(workload,
+                                                       pairs_and_spliced,
+                                                       tmp_path):
     ref, reads = workload
-    out, sam = tmp_path / "out.paf", tmp_path / "out.sam"
+    (r1, r2), spliced = pairs_and_spliced
+    out = {k: tmp_path / k for k in ("paf", "sam", "sr.sam", "tx.paf")}
     r = run_python(f"""
 import importlib, pkgutil
 import mm2tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(mm2tpu_torch.__path__,
                                               "mm2tpu_torch.")]
-assert len(mods) >= 8, mods
+assert len(mods) >= 30, mods
 for m in mods:
     importlib.import_module(m)
 from mm2tpu_torch.cli import main
-rc = main(["-x", "map-ont", "--device", "cpu", "-o", {str(out)!r},
+rc = main(["-x", "map-ont", "--device", "cpu", "-o", {str(out["paf"])!r},
            {ref!r}, {reads!r}])
 assert rc == 0, rc
 # SAM with every extension fill through the port's batcher and extd2
 rc = main(["-x", "map-ont", "-a", "--align-backend", "gpu",
-           "--align-tpu-min-mat", "1", "--device", "cpu", "-o", {str(sam)!r},
-           {ref!r}, {reads!r}])
+           "--align-tpu-min-mat", "1", "--device", "cpu", "-o",
+           {str(out["sam"])!r}, {ref!r}, {reads!r}])
 assert rc == 0, rc
-assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
+# read pairs (K2, two segments) with their fills on the port's extd2
+rc = main(["-x", "sr", "-a", "--align-backend", "gpu", "--device", "cpu",
+           "-o", {str(out["sr.sam"])!r}, {ref!r}, {r1!r}, {r2!r}])
+assert rc == 0, rc
+# spliced reads (K2, cDNA scoring)
+rc = main(["-x", "splice", "--device", "cpu", "-o", {str(out["tx.paf"])!r},
+           {ref!r}, {spliced!r}])
+assert rc == 0, rc
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "mm2tpu")]
+assert not bad, bad
 """)
     assert r.returncode == 0, r.stderr[-3000:]
-    assert len(out.read_text().splitlines()) >= 12
-    assert sum(1 for ln in sam.read_text().splitlines()
-               if not ln.startswith("@")) >= 12
+    assert len(out["paf"].read_text().splitlines()) >= 12
+    for k, n in (("sam", 12), ("sr.sam", 40)):
+        assert sum(1 for ln in out[k].read_text().splitlines()
+                   if not ln.startswith("@")) >= n
+    assert len(out["tx.paf"].read_text().splitlines()) >= 5
 
 
 def test_blocker_really_blocks_jax():
     r = run_python("import jax\n", timeout=120)
     assert r.returncode != 0 and "jax is blocked" in r.stderr
+
+
+def test_blocker_really_blocks_the_jax_package():
+    r = run_python("import mm2tpu.options\n", timeout=120)
+    assert r.returncode != 0 and "mm2tpu is blocked" in r.stderr
+
+
+def test_native_library_is_the_ports_own_build():
+    """The port's binding compiles native/mm2tpu_native.cpp into its
+    build directory and loads that library, never native/libmm2tpu.so."""
+    r = run_python("""
+from mm2tpu_torch.native import lib
+assert lib.available()
+print(lib.loaded_from)
+print(lib.BUILD_DIR)
+""", timeout=900)
+    assert r.returncode == 0, r.stderr[-3000:]
+    loaded, build_dir = map(pathlib.Path, r.stdout.split())
+    assert loaded.parent == build_dir == REPO / "build" / "mm2tpu_torch"
+    assert loaded.name.startswith("libmm2tpu_host_") and loaded.is_file()
+    maps = pathlib.Path("/proc/self/maps")
+    if maps.exists():
+        r = run_python(f"""
+from mm2tpu_torch.native import lib
+assert lib.available()
+maps = open("/proc/self/maps").read()
+assert {str(loaded)!r} in maps
+assert "libmm2tpu.so" not in maps
+""", timeout=900)
+        assert r.returncode == 0, r.stderr[-3000:]
 
 
 def test_device_cuda_without_a_card_fails_loudly(workload, tmp_path):
@@ -102,11 +161,11 @@ def test_resolve_device_is_explicit():
     (["--align-backend", "tpu"], "--align-backend gpu", 1),
     (["--chain-backend", "native"], "M3", 1),
     (["--split-prefix", "x"], "M1", 1),
-    (["-x", "splice"], "M4", 1),
+    (["-x", "splice", "-a", "--align-backend", "gpu"], "M6", 1),
     (["--map-mode", "stream"], "M3", 1),
     (["--profile-trace", "tr"], "M10", 1),
-    (["-x", "sr"], "M4", 2),   # paired-end fragments
-    (["-x", "sr"], "M4", 1),   # one interleaved file, grouped by name
+    (["-x", "splice", "-c", "--align-backend", "gpu"], "M6", 1),
+    (["-x", "sr", "--map-mode", "stream"], "M3", 2),
 ])
 def test_cli_rejects_unported_modes(workload, tmp_path, capsys, flags, item,
                                     n_queries):

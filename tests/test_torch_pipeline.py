@@ -12,11 +12,13 @@ import numpy as np
 import pytest
 import torch
 
-from mm2tpu.cli import mapopt_update
-from mm2tpu.index.build import build_index
-from mm2tpu.io.format import write_paf
+import mm2tpu.index.build as jax_build
+import mm2tpu.io.format as jax_format
+import mm2tpu.options as jax_options
+import mm2tpu_torch.index.build as port_build
+import mm2tpu_torch.io.format as port_format
+import mm2tpu_torch.options as port_options
 from mm2tpu.mapping.pipeline import map_frags_batched as jax_map_batched
-from mm2tpu.options import set_opt
 from mm2tpu_torch.mapping.pipeline import map_frags_batched
 from mm2tpu_torch.ops import chain_v3
 
@@ -31,14 +33,22 @@ def load_make_workload():
     return mod
 
 
+def index_and_options(pkg_build, pkg_options, genome):
+    """One package's own index of `genome` and its map-ont options: each
+    package maps with its own objects."""
+    mi = pkg_build.build_index(["c0"], [genome], w=10, k=15)
+    _, mo = pkg_options.set_opt("map-ont")
+    pkg_options.mapopt_update(mo, mi)
+    return mi, mo
+
+
 @pytest.fixture(scope="module")
 def small_genome():
-    """A 60 kb seeded genome and 10 uneven reads with 5% substitutions."""
+    """A 60 kb seeded genome and 10 uneven reads with 5% substitutions,
+    with the port's index and options, then the JAX package's."""
     grng = np.random.default_rng(7)
     genome = "".join(np.array(list("ACGT"))[grng.integers(0, 4, 60000)])
-    mi = build_index(["c0"], [genome], w=10, k=15)
-    _, mo = set_opt("map-ont")
-    mapopt_update(mo, mi)
+    mi, mo = index_and_options(port_build, port_options, genome)
     frags, names = [], []
     for i in range(10):
         L = int(grng.integers(300, 3000))
@@ -48,10 +58,11 @@ def small_genome():
             s[int(grng.integers(0, L))] = "ACGT"[grng.integers(0, 4)]
         frags.append(["".join(s)])
         names.append("r%d" % i)
-    return mi, mo, frags, names
+    return mi, mo, frags, names, index_and_options(jax_build, jax_options,
+                                                   genome)
 
 
-def paf(mi, mo, names, frags, res):
+def paf(mi, mo, names, frags, res, write_paf=port_format.write_paf):
     lines = []
     for name, fr, frag in zip(names, res, frags):
         regs = fr.regs[0]
@@ -65,18 +76,18 @@ def paf(mi, mo, names, frags, res):
 
 
 def test_map_frags_batched_matches_jax(small_genome):
-    mi, mo, frags, names = small_genome
+    mi, mo, frags, names, (jmi, jmo) = small_genome
     calls = chain_v3.reference_calls
     res = map_frags_batched(mi, frags, mo, names, "cpu")
     assert chain_v3.reference_calls > calls
-    res_jax = jax_map_batched(mi, frags, mo, names, mesh=None)
+    res_jax = jax_map_batched(jmi, frags, jmo, names, mesh=None)
     assert paf(mi, mo, names, frags, res) == \
-        paf(mi, mo, names, frags, res_jax)
+        paf(jmi, jmo, names, frags, res_jax, jax_format.write_paf)
     assert sum(1 for fr in res if fr.regs[0]) >= 8
 
 
 def test_map_frags_batched_rejects_unported_backends(small_genome):
-    mi, mo, frags, names = small_genome
+    mi, mo, frags, names, _ = small_genome
     for field, item in (("seed_backend", "M7"),
                         ("align_backend", "align-backend gpu")):
         old = getattr(mo, field)
@@ -121,14 +132,15 @@ def test_cli_matches_jax_batch_mode(workload, tmp_path, extra):
 
 def test_cli_chain_fn_replaces_the_chaining(workload, tmp_path):
     """`main(..., chain_fn=...)` sends every batch through the given
-    chaining function, and the plain version gives the default's PAF."""
+    chaining function, and the plain versions give the default's PAF."""
     from mm2tpu_torch.cli import main
+    from mm2tpu_torch.ops.chain_packed import chain_scores_plain
     ref, reads = workload
     seen = []
 
     def plain(*args, **kw):
         seen.append(args[0].shape)
-        return chain_v3.chain_scores_v3_reference(*args, **kw)
+        return chain_scores_plain(*args, **kw)
 
     outs = []
     for fn in (None, plain):
@@ -144,7 +156,7 @@ def test_cli_chain_fn_replaces_the_chaining(workload, tmp_path):
 def test_cuda_path_matches_cpu_path(small_genome):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    mi, mo, frags, names = small_genome
+    mi, mo, frags, names, _ = small_genome
     launches = chain_v3.launches
     res_gpu = map_frags_batched(mi, frags, mo, names, "cuda")
     assert chain_v3.launches > launches
