@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's batch paths once on one CUDA card: -x map-ont
-(PAF and SAM), -x sr read pairs and -x splice spliced reads.
+(PAF and SAM), -x sr read pairs and -x splice spliced reads (PAF, and
+SAM and PAF with CIGARs through the splice kernel).
 
 Run from the root of a checkout, with no arguments:
 
@@ -23,6 +24,13 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      map-ont scoring, w = 500 (and w = -1 at the small size), five flag
      sets; every ez register, op code and CIGAR equal, both timed at the
      largest shape
+ 3b. the exts2 splice kernel K4 (splice DP, backtrack start and trace)
+     against its plain version on the card: seeded two-exon fills across
+     a GT-AG intron under the splice preset's scoring, B = 8 (introns of
+     100-1000 bp) under six flag sets (one with --junc-bed flags), and B =
+     64 (exons of 200-400 bp, introns of 2000-8000 bp), with Z-drops and N
+     bases; every ez register, op code and CIGAR equal, both timed at the
+     largest shape
   4. the chaining kernel K2 (csrc/chain.cu, general contract) against its
      plain version: two-segment batches (read pairs, with cross-segment
      pairs at dr = 0) and single-segment cDNA batches, contracts
@@ -37,21 +45,27 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      --align-tpu-min-mat 1`, every extension fill on K3, then with
      `--align-backend host` (the native extension): the SAMs must be
      byte-identical without @PG, and only the kernels may have run
-  7. the first 100 reads of at most 8 kb mapped again through the PAF
+  7. the first 60 reads of at most 8 kb mapped again through the PAF
      path with the plain chaining on CUDA tensors, and the first 20 of
      them through the SAM path with the plain extd2 on CUDA tensors:
      their PAF and SAM lines must be byte-identical to the kernels'
   8. the -x sr paired path on the same genome: 10,000 seeded read pairs
-     of 2 x 150 bp, to PAF, to SAM with `-a --align-backend gpu
-     --align-tpu-min-mat 1` and to SAM with `--align-backend host`; the
-     SAMs byte-identical without @PG, >= 90% of the pairs mapped, only K2
-     (and K3) launched and no plain version run
-  9. the -x splice path: 1000 seeded spliced reads to PAF and to SAM with
-     `-a --align-backend host` (the splice extension stays on the host);
-     >= 90% of the reads mapped, only K2 launched
- 10. the first 500 pairs and the first 50 spliced reads mapped again with
+     of 2 x 150 bp to PAF, and the first 2000 of them to SAM with `-a
+     --align-backend gpu --align-tpu-min-mat 1` and to SAM with
+     `--align-backend host`; the SAMs byte-identical without @PG, >= 90%
+     of the pairs mapped, only K2 (and K3) launched and no plain version
+     run
+  9. the -x splice path: 1000 seeded spliced reads to PAF (only K2
+     launched), to SAM with `-a --align-backend gpu --align-tpu-min-mat 1`
+     (every splice fill on K4: only K2 and K4 launched, no fill left on
+     the host), to SAM with `--align-backend host` (byte-identical
+     without @PG), and the first 250 to PAF with CIGARs (`-c`) through
+     K4; >= 90% of the reads mapped
+ 10. the first 500 pairs and the first 10 spliced reads mapped again with
      the plain chaining of both contracts on CUDA tensors: their PAF
-     lines must be byte-identical to the kernels'
+     lines must be byte-identical to the kernels'; the first 2 spliced
+     reads through the SAM path with the plain exts2 on CUDA tensors:
+     their SAM records must be byte-identical to K4's
  11. no module of jax or of the JAX package loaded; a JSON line per
      kernel (times, launches, bound), the card's name and power limit,
      then {"ok": true, "device": {...}} last
@@ -60,7 +74,7 @@ Everything runs through `mm2tpu_torch`; the script imports nothing of
 JAX and nothing of the JAX package. The plain versions' agreement with
 the NumPy oracles and with the Pallas kernels is held in the CPU tests
 (tests/test_torch_chain_v3.py, tests/test_torch_chain_v2.py,
-tests/test_torch_ksw2_extd2.py).
+tests/test_torch_ksw2_extd2.py, tests/test_torch_ksw2_exts2.py).
 """
 from __future__ import annotations
 
@@ -82,8 +96,8 @@ DEVICE = "cuda"
 WORKLOAD = dict(genome_mb=48, n_reads=1000, seed=0)
 MIN_MAPPED = 0.95
 # map-ont reads mapped again through the plain versions, few enough that
-# the whole script stays near 750 s of its 1200 s limit
-PARITY_READS, PARITY_MAX_LEN = 100, 8000
+# the whole script stays near 800 s of its 1200 s limit
+PARITY_READS, PARITY_MAX_LEN = 60, 8000
 SAM_READS = 1000          # reads of the SAM path (all of the workload)
 EXT_PARITY_READS = 20     # of the parity reads, through the plain extd2
 # (B, N) of the kernel-vs-plain batches: the main path's buckets run
@@ -142,9 +156,17 @@ V2_TIMED = {(False, 2): "sr", (True, 1): "splice", (True, 2): "splice"}
 # the -x sr paired path: read pairs on the smoke genome; the first
 # SR_PARITY_PAIRS of them again through the plain chaining
 SR_PAIRS, SR_PARITY_PAIRS = 10000, 500
+# the pairs of the two -x sr SAM runs (the PAF maps all SR_PAIRS): the
+# first 2000, so that the script stays under ~1000 s of its limit
+SR_SAM_PAIRS = 2000
 # the -x splice path: spliced reads on the smoke genome; the first
 # SPLICE_PARITY_READS of them again through the plain chaining
-SPLICE_READS, SPLICE_PARITY_READS = 1000, 50
+SPLICE_READS, SPLICE_PARITY_READS = 1000, 10
+# of the spliced reads, the first few through the SAM path with the plain
+# exts2 on CUDA tensors (a flush of it takes seconds)
+EXTS2_PARITY_READS = 2
+# the spliced reads of the -c run through K4 (the SAM runs map all)
+SPLICE_CIGAR_READS = 250
 MIN_MAPPED_SR_SPLICE = 0.90
 # The bound of a kernel (the least time the card could take for the same
 # work): the larger of its bytes over the H100's 3.35 TB/s and its int32
@@ -155,6 +177,38 @@ MIN_MAPPED_SR_SPLICE = 0.90
 SMS, INT32_LANES, HBM_BYTES_S = 132, 64, 3.35e12
 OPS_PER_CANDIDATE = {"chain_v3": 32, "chain_v2": 45}
 OPS_PER_CELL = 50
+# a K4 cell in csrc/ksw2_exts2.cu: the score refresh, seven state and
+# site loads, the four-way max with its direction, three gate compares,
+# five state stores and the direction byte, the H update and the
+# (value, priority) compare of the exact max
+OPS_PER_CELL_EXTS2 = 60
+# K4 kernel-vs-plain fills: two exons around one GT-AG intron, (B, exon
+# lengths, intron lengths); the last shape is the timed one, which the
+# kernel line of the JSON reports
+EXTS2_SHAPES = [(8, (80, 400), (100, 1000)), (64, (200, 400), (2000, 8000))]
+# the splice preset's scoring (options.py: -x splice): match 1, mismatch
+# 2, N -1; q, e = 2, 1, intron open q2 = 32, non-canonical 9, junction
+# bonus 9, zdrop 200
+SPLICE_MAT = dict(a=1, b=2)
+SPLICE_GAPS = dict(q=2, e=1, q2=32, noncan=9)
+SPLICE_ZDROP, SPLICE_JUNC_BONUS = 200, 9
+KSW_EZ_SPLICE_FOR, KSW_EZ_SPLICE_REV, KSW_EZ_SPLICE_FLANK = 0x100, 0x200, \
+    0x400
+FOR_FLANK = KSW_EZ_SPLICE_FOR | KSW_EZ_SPLICE_FLANK
+# the flag sets of align1's splice fills: a global fill, the reverse
+# strand, the left extension (RIGHT|REV_CIGAR|EXTZ_ONLY), the right
+# extension, the gap fills (APPROX_MAX) and APPROX_MAX|APPROX_DROP with
+# --junc-bed flags
+EXTS2_FLAGS = {
+    "SPLICE_FOR|FLANK": (FOR_FLANK, False),
+    "SPLICE_REV|FLANK": (KSW_EZ_SPLICE_REV | KSW_EZ_SPLICE_FLANK, False),
+    "EXTZ_ONLY|RIGHT|REV_CIGAR": (FOR_FLANK | KSW_EZ_EXTZ_ONLY | KSW_EZ_RIGHT
+                                  | KSW_EZ_REV_CIGAR, False),
+    "EXTZ_ONLY": (FOR_FLANK | KSW_EZ_EXTZ_ONLY, False),
+    "APPROX_MAX": (FOR_FLANK | KSW_EZ_APPROX_MAX, False),
+    "APPROX_MAX|APPROX_DROP, junc": (FOR_FLANK | KSW_EZ_APPROX_MAX
+                                     | KSW_EZ_APPROX_DROP, True),
+}
 
 
 def say(phase, msg):
@@ -516,6 +570,124 @@ def phase_ext_kernel_vs_plain():
     return timed, max_err, work
 
 
+def splice_matrix():
+    mat = np.full((5, 5), -SPLICE_MAT["b"], np.int8)
+    np.fill_diagonal(mat, SPLICE_MAT["a"])
+    mat[4, :] = mat[:, 4] = -1
+    return mat
+
+
+def synth_splice_fills(B, exon, intron, seed):
+    """B (query, target, junc) splice fills: the target is exon 1, a
+    GT...AG intron and exon 2, the query both exons with 5% substitutions
+    and 2% indels. Every third query stops inside exon 2 (extension
+    shape), every fifth has a random tail after exon 1, 250 bases longer
+    than exon 2 (a Z-drop), every
+    fourth carries two N bases; junc marks the intron's ends (the
+    --junc-bed flags of a donor and an acceptor)."""
+    rng = np.random.default_rng(seed)
+    tasks = []
+    for b in range(B):
+        e1, e2 = (rng.integers(0, 4, int(rng.integers(exon[0], exon[1] + 1)))
+                  .astype(np.uint8) for _ in range(2))
+        it = rng.integers(0, 4, int(rng.integers(intron[0], intron[1] + 1))
+                          ).astype(np.uint8)
+        it[:2], it[-2:] = (2, 3), (0, 2)
+        t8 = np.concatenate([e1, it, e2])
+        q8 = mutate(np.concatenate([e1, e2]), rng, sub=0.05, ind=0.02)
+        if b % 5 == 4:
+            q8 = np.concatenate([mutate(e1, rng, sub=0.05, ind=0.02),
+                                 rng.integers(0, 4, len(e2) + 250).astype(
+                                     np.uint8)])
+        elif b % 3 == 2:
+            q8 = q8[: len(q8) * 3 // 4]
+        if b % 4 == 3:
+            q8[rng.integers(0, len(q8), 2)] = 4
+        junc = np.zeros(len(t8), np.uint8)
+        junc[len(e1)] |= 1
+        junc[len(e1) + len(it) - 1] |= 2
+        tasks.append((q8, t8, junc))
+    return tasks
+
+
+def phase_exts2_kernel_vs_plain():
+    """K4 against its plain version on the card, on every shape of
+    EXTS2_SHAPES and flag set of EXTS2_FLAGS (the last shape under the
+    first flag set only: its plain version takes seconds), every ez
+    register, op code, final (i, j) and CIGAR equal. Returns (kernel ms,
+    plain ms) at the last shape, the max abs error and the timed call's
+    work: (bytes, int32 instructions) for the inputs read once (lens, the
+    sf image, the query, the donor and acceptor rows) and ez, the op
+    codes and (i, j) written once, and Σ qlen·tlen cells."""
+    from mm2tpu_torch.ops import ksw2_exts2 as S
+    mat = splice_matrix()
+    max_err, timed, work = 0, None, None
+    for si, (B, exon, intron) in enumerate(EXTS2_SHAPES):
+        fills = synth_splice_fills(B, exon, intron, seed=400 + si)
+        last = si == len(EXTS2_SHAPES) - 1
+        for name, (flag, with_junc) in EXTS2_FLAGS.items():
+            if last and name != "SPLICE_FOR|FLANK":
+                continue
+            tasks = [(q8, t8, junc if with_junc else None)
+                     for q8, t8, junc in fills]
+            raw = {}
+
+            def keep(tag, fn):
+                def run(*a, **kw):
+                    raw[tag] = fn(*a, **kw)
+                    return raw[tag]
+                return run
+
+            args = (tasks, mat, *SPLICE_GAPS.values(), SPLICE_ZDROP,
+                    SPLICE_JUNC_BONUS, flag)
+            kern = S.exts2_batch(*args, device=DEVICE,
+                                 fn=keep("kernel", S.exts2_traced))
+            plain = S.exts2_batch(*args, device=DEVICE,
+                                  fn=keep("plain", S.exts2_traced_reference))
+            err = max(int((a.to(torch.int64) - b.to(torch.int64))
+                          .abs().max())
+                      for a, b in zip(raw["kernel"], raw["plain"]))
+            max_err = max(max_err, err)
+            same = all(torch.equal(a, b)
+                       for a, b in zip(raw["kernel"], raw["plain"]))
+            bad = [(i, f) for i, (k, p) in enumerate(zip(kern, plain))
+                   for f in EZ_FIELDS if getattr(k, f) != getattr(p, f)]
+            if not same or bad:
+                raise AssertionError(
+                    "exts2 kernel != plain at B=%d, introns %d-%d bp, flag "
+                    "%s: max abs err %d, fields %s"
+                    % (B, *intron, name, err, bad[:5]))
+            say("3b", "K4 == plain at B=%d, exons %d-%d, introns %d-%d bp, "
+                "flag %s: %d CIGARs, %d with an intron (N), %d z-dropped"
+                % (B, *exon, *intron, name, sum(bool(r.cigar) for r in kern),
+                   sum(any(c & 15 == 3 for c in r.cigar) for r in kern),
+                   sum(r.zdropped for r in kern)))
+        if last:
+            flag = EXTS2_FLAGS["SPLICE_FOR|FLANK"][0]
+            pk = S.pack_splice_fills(fills, mat, **SPLICE_GAPS,
+                                     junc_bonus=SPLICE_JUNC_BONUS, flag=flag)
+            planes = [torch.from_numpy(a).to(DEVICE) for a in pk.planes()]
+            kw = dict(q=SPLICE_GAPS["q"], e=SPLICE_GAPS["e"],
+                      q2=SPLICE_GAPS["q2"], zdrop=SPLICE_ZDROP,
+                      sc_mch=pk.sc_mch, sc_mis=pk.sc_mis, sc_N=pk.sc_N,
+                      right=False, approx=False, approx_drop=False,
+                      extz_only=False)
+            ms, _ = cuda_ms(functools.partial(S.exts2_traced, *planes, **kw),
+                            3)
+            plain_ms, _ = cuda_ms(functools.partial(
+                S.exts2_traced_reference, *planes, **kw), 1, warmup=False)
+            timed = (ms, plain_ms)
+            smax = int(pk.lens.sum(1).max()) - 1
+            work = (sum(a.nbytes for a in pk.planes())
+                    + B * (4 * S.NREG + smax + 8),
+                    OPS_PER_CELL_EXTS2 * int(
+                        (pk.lens[:, 0].astype(np.int64) * pk.lens[:, 1]).sum()))
+            say("3b", "time at B=%d, exons %d-%d, introns %d-%d bp, flag "
+                "SPLICE_FOR|FLANK (%d rows at most): kernel %.3f ms, plain "
+                "%.3f ms" % (B, *exon, *intron, smax, ms, plain_ms))
+    return timed, max_err, work
+
+
 def load_make_workload():
     spec = importlib.util.spec_from_file_location(
         "make_workload", REPO / "scripts" / "make_workload.py")
@@ -847,7 +1019,9 @@ def phase_ext_parity(tmp, ref, recs, sam):
 def chain_counts():
     from mm2tpu_torch.ops import chain_v2, chain_v3
     from mm2tpu_torch.ops import ksw2_extd2 as X
-    return {"chain_v3": chain_v3, "chain_v2": chain_v2, "ksw2_extd2": X}
+    from mm2tpu_torch.ops import ksw2_exts2 as S
+    return {"chain_v3": chain_v3, "chain_v2": chain_v2, "ksw2_extd2": X,
+            "ksw2_exts2": S}
 
 
 def drive(argv, profile=True, **main_kw):
@@ -915,10 +1089,11 @@ def head_fastq(path, n, out):
 
 
 def phase_sr(tmp, ref):
-    """The -x sr paired path: PAF, then SAM with every extension fill on
-    K3, then SAM through the host extension; the SAMs must be identical
-    and only K2 (and K3) may have run. Returns the pairs' files, the PAF
-    lines and K2's launches in the PAF run."""
+    """The -x sr paired path: PAF of SR_PAIRS pairs, then SAM of the first
+    SR_SAM_PAIRS with every extension fill on K3, then SAM through the
+    host extension; the SAMs must be identical and only K2 (and K3) may
+    have run. Returns the pairs' files, the PAF lines and K2's launches
+    in the PAF run."""
     t0 = time.perf_counter()
     r1, r2 = make_sr_pairs(ref, os.path.join(tmp, "sr"), SR_PAIRS, seed=1)
     say(8, "%d read pairs of 2 x 150 bp (inserts 450 +- 50 bp, 1%% "
@@ -938,20 +1113,23 @@ def phase_sr(tmp, ref):
         len(mapped), SR_PAIRS, len(lines)))
     report(8, "PAF", wall, 2 * SR_PAIRS, stages, counters)
     sams = {}
+    sam_q = [head_fastq(r, SR_SAM_PAIRS, os.path.join(tmp, "sr_sam_%d.fq"
+                                                        % k))
+             for k, r in ((1, r1), (2, r2))]
     for backend in ("gpu", "host"):
         out = os.path.join(tmp, "sr.%s.sam" % backend)
         w, c, st, ctr = drive(["-x", "sr", "-a", "--align-backend", backend,
                                "--align-tpu-min-mat", "1", "--device",
-                               DEVICE, "-o", out, ref, r1, r2])
+                               DEVICE, "-o", out, ref, *sam_q])
         if backend == "gpu":
             only_k2(8, "SAM through K3", c, "ksw2_extd2")
             if ctr.get("ext.fills", 0) <= 0:
                 raise AssertionError("-x sr SAM: no fill reached K3")
-            report(8, "SAM through K3", w, 2 * SR_PAIRS, st, ctr)
+            report(8, "SAM through K3", w, 2 * SR_SAM_PAIRS, st, ctr)
         else:
             only_k2(8, "SAM through the host extension", c)
             say(8, "SAM through the host extension: %.3f s wall, %.3f "
-                "reads/s" % (w, 2 * SR_PAIRS / w))
+                "reads/s" % (w, 2 * SR_SAM_PAIRS / w))
         with open(out) as fh:
             sams[backend] = strip_pg(fh.read())
     if sams["gpu"] != sams["host"]:
@@ -963,20 +1141,23 @@ def phase_sr(tmp, ref):
         if not flag & 0x904:   # a mapped primary record
             mates.setdefault(c[0], set()).add(flag & 0xC0)
     both = sum(1 for v in mates.values() if len(v) == 2)
-    if both < MIN_MAPPED_SR_SPLICE * SR_PAIRS:
+    if both < MIN_MAPPED_SR_SPLICE * SR_SAM_PAIRS:
         raise AssertionError("-x sr SAM: both mates mapped for only %d of "
-                             "%d pairs" % (both, SR_PAIRS))
+                             "%d pairs" % (both, SR_SAM_PAIRS))
     say(8, "SAM through K3 is byte-identical to SAM through the host "
         "extension, without @PG; both mates mapped for %d of %d pairs"
-        % (both, SR_PAIRS))
+        % (both, SR_SAM_PAIRS))
     return r1, r2, lines, counts["chain_v2"][0]
 
 
 def phase_splice(tmp, ref):
-    """The -x splice path: PAF, then SAM with the splice fills on the
-    host (the device splice extension, K4, is not ported); only K2 may
-    have chained. Returns the reads' FASTA, the PAF lines and K2's
-    launches in the PAF run."""
+    """The -x splice path: PAF (only K2 may have chained), then SAM with
+    every fill on K4 (`-a --align-backend gpu --align-tpu-min-mat 1`:
+    only K2 and K4 may have launched, no fill left on the host), SAM
+    through the host's splice extension (byte-identical without @PG) and
+    PAF with CIGARs through K4 (`-c`) of the first SPLICE_CIGAR_READS.
+    Returns the reads' FASTA, the PAF lines, K2's launches in the PAF
+    run, K4's in the SAM run and that run's SAM text."""
     t0 = time.perf_counter()
     reads = make_spliced_reads(ref, os.path.join(tmp, "tx.fa"),
                                SPLICE_READS, seed=2)
@@ -996,21 +1177,93 @@ def phase_splice(tmp, ref):
     say(9, "PAF: %d of %d reads mapped (%d PAF lines)" % (
         len(mapped), SPLICE_READS, len(lines)))
     report(9, "PAF", wall, SPLICE_READS, stages, counters)
-    sam = os.path.join(tmp, "tx.sam")
-    w, c, st, ctr = drive(["-x", "splice", "-a", "--align-backend", "host",
-                           "--device", DEVICE, "-o", sam, ref, reads])
-    only_k2(9, "SAM (splice fills on the host)", c)
-    with open(sam) as fh:
-        body = sam_records(fh.read())
-    primary = [r for r in body if not int(r[1]) & 0x904]
+    sams, k4 = {}, 0
+    for backend in ("gpu", "host"):
+        out = os.path.join(tmp, "tx.%s.sam" % backend)
+        w, c, st, ctr = drive(["-x", "splice", "-a", "--align-backend",
+                               backend, "--align-tpu-min-mat", "1",
+                               "--device", DEVICE, "-o", out, ref, reads])
+        if backend == "gpu":
+            only_k2(9, "SAM through K4", c, "ksw2_exts2")
+            if ctr.get("ext.fills", 0) <= 0 or ctr.get("ext.host_fills", 0):
+                raise AssertionError(
+                    "-x splice SAM: ext.fills %s, ext.host_fills %s" % (
+                        ctr.get("ext.fills"), ctr.get("ext.host_fills")))
+            report(9, "SAM through K4", w, SPLICE_READS, st, ctr)
+            k4 = c["ksw2_exts2"][0]
+        else:
+            only_k2(9, "SAM through the host splice extension", c)
+            report(9, "SAM through the host splice extension", w,
+                   SPLICE_READS, st, ctr)
+        with open(out) as fh:
+            sams[backend] = fh.read()
+    if strip_pg(sams["gpu"]) != strip_pg(sams["host"]):
+        raise AssertionError("-x splice: SAM through K4 differs from SAM "
+                             "through the host splice extension")
+    primary = [r for r in sam_records(sams["gpu"]) if not int(r[1]) & 0x904]
     spliced = sum(1 for r in primary if "N" in r[5])
     if len({r[0] for r in primary}) < MIN_MAPPED_SR_SPLICE * SPLICE_READS:
         raise AssertionError("-x splice SAM: only %d of %d reads mapped"
                              % (len(primary), SPLICE_READS))
-    say(9, "SAM: %d primary records, %d with an intron (N) in the CIGAR"
-        % (len(primary), spliced))
-    report(9, "SAM (splice fills on the host)", w, SPLICE_READS, st, ctr)
-    return reads, lines, counts["chain_v2"][0]
+    say(9, "SAM through K4 is byte-identical to SAM through the host "
+        "splice extension, without @PG: %d primary records, %d with an "
+        "intron (N) in the CIGAR" % (len(primary), spliced))
+    cpaf = os.path.join(tmp, "tx.c.paf")
+    c_reads = os.path.join(tmp, "tx_c.fa")
+    c_recs = read_fasta(reads)[:SPLICE_CIGAR_READS]
+    write_reads(c_reads, c_recs)
+    w, c, st, ctr = drive(["-x", "splice", "-c", "--align-backend", "gpu",
+                           "--align-tpu-min-mat", "1", "--device", DEVICE,
+                           "-o", cpaf, ref, c_reads])
+    only_k2(9, "PAF with CIGARs (-c) through K4", c, "ksw2_exts2")
+    if ctr.get("ext.fills", 0) <= 0 or ctr.get("ext.host_fills", 0):
+        raise AssertionError("-x splice -c: ext.fills %s, ext.host_fills %s"
+                             % (ctr.get("ext.fills"),
+                                ctr.get("ext.host_fills")))
+    with open(cpaf) as fh:
+        body = [ln.split("\t") for ln in fh.read().splitlines() if ln]
+    cg = [f for ln in body for f in ln[12:] if f.startswith("cg:Z:")]
+    if len(cg) != len(body) or sum("N" in f for f in cg) < len(c_recs) // 2:
+        raise AssertionError("-x splice -c: %d lines, %d with cg:Z:, %d "
+                             "spliced" % (len(body), len(cg),
+                                          sum("N" in f for f in cg)))
+    say(9, "-c through K4: %d PAF lines, every one with cg:Z:, %d with an "
+        "intron (N)" % (len(body), sum("N" in f for f in cg)))
+    report(9, "PAF with CIGARs (-c) through K4", w, len(c_recs), st, ctr)
+    return reads, lines, counts["chain_v2"][0], k4, sams["gpu"]
+
+
+def phase_exts2_parity(tmp, ref, tx):
+    """The first EXTS2_PARITY_READS spliced reads through the SAM path
+    with the plain exts2 on CUDA tensors (`main(..., exts2_fn=)`): their
+    SAM records must equal K4's."""
+    from mm2tpu_torch.ops import ksw2_exts2 as S
+    reads, _, _, _, sam = tx
+    recs = read_fasta(reads)[:EXTS2_PARITY_READS]
+    names = {name for name, _ in recs}
+    sub = os.path.join(tmp, "exts2_parity.fa")
+    write_reads(sub, recs)
+    out = os.path.join(tmp, "exts2_parity.sam")
+    wall, counts, _, counters = drive(
+        ["-x", "splice", "-a", "--align-backend", "gpu",
+         "--align-tpu-min-mat", "1", "--device", DEVICE, "-o", out, ref,
+         sub], exts2_fn=S.exts2_traced_reference)
+    launches, plain = counts["ksw2_exts2"]
+    if launches or plain <= 0 or counters.get("ext.host_fills", 0):
+        raise AssertionError("exts2 parity run did not use the plain exts2 "
+                             "only: %s, ext.host_fills %s"
+                             % (counts, counters.get("ext.host_fills")))
+    with open(out) as fh:
+        got = [ln for ln in fh.read().splitlines()
+               if ln and not ln.startswith("@")]
+    want = [ln for ln in sam.splitlines()
+            if ln and not ln.startswith("@") and ln.split("\t", 1)[0] in names]
+    if got != want:
+        raise AssertionError("plain-exts2 SAM differs from K4's on the %d "
+                             "parity reads" % len(recs))
+    say(10, "%d spliced reads: plain-exts2 SAM (%d records, %d flushes, "
+        "%d fills, %.3f s) is byte-identical to K4's" % (
+            len(recs), len(got), plain, counters.get("ext.fills", 0), wall))
 
 
 def phase_v2_parity(tmp, ref, sr, tx):
@@ -1019,7 +1272,7 @@ def phase_v2_parity(tmp, ref, sr, tx):
     lines must equal the kernels'."""
     from mm2tpu_torch.ops.chain_packed import chain_scores_plain
     r1, r2, sr_lines, _ = sr
-    tx_reads, tx_lines, _ = tx
+    tx_reads, tx_lines = tx[:2]
     sub = [head_fastq(r, SR_PARITY_PAIRS, os.path.join(tmp, "par_%d.fq" % k))
            for k, r in ((1, r1), (2, r2))]
     with open(sub[0]) as fh:
@@ -1061,7 +1314,7 @@ def kernel_line(name, source, replaces, launches, max_err, times, work,
             "max_abs_err": max_err, "ms": times[0], "plain_ms": times[1],
             "bound_ms": bound_ms, "bound_by": bound_by,
             # no single PyTorch call computes a chaining DP or a ksw2
-            # extension
+            # extension, splice-aware or not
             "library_ms": None}
 
 
@@ -1077,6 +1330,7 @@ def main() -> int:
     phase_build()
     times, max_err, work = phase_kernel_vs_plain()
     ext_times, ext_err, ext_work = phase_ext_kernel_vs_plain()
+    s2_times, s2_err, s2_work = phase_exts2_kernel_vs_plain()
     v2_times, v2_err, v2_work = phase_v2_kernel_vs_plain()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         ref, reads, lines, launches = phase_main_path(tmp)
@@ -1086,6 +1340,7 @@ def main() -> int:
         sr = phase_sr(tmp, ref)
         tx = phase_splice(tmp, ref)
         phase_v2_parity(tmp, ref, sr, tx)
+        phase_exts2_parity(tmp, ref, tx)
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "mm2tpu"))
     if bad:
@@ -1097,9 +1352,11 @@ def main() -> int:
             sum(m.split(".")[0] == "mm2tpu_torch" for m in sys.modules)))
     B, N = SHAPES[-1]
     say(11, "K1 at (%d, %d), K2 at (%d, %d) (cDNA, 1 segment, -x splice), "
-        "K3 at B = %d, %d-%d bp: bound = max(bytes / %.3g B/s, int32 "
-        "instructions / (%d SMs x %d lanes x %g MHz))" % (
-            B, N, *V2_SHAPES[-1], *EXT_SHAPES[-1][:3], HBM_BYTES_S, SMS,
+        "K3 at B = %d, %d-%d bp, K4 at B = %d, exons %d-%d, introns %d-%d "
+        "bp: bound = max(bytes / %.3g B/s, int32 instructions / (%d SMs x "
+        "%d lanes x %g MHz))" % (
+            B, N, *V2_SHAPES[-1], *EXT_SHAPES[-1][:3], EXTS2_SHAPES[-1][0],
+            *EXTS2_SHAPES[-1][1], *EXTS2_SHAPES[-1][2], HBM_BYTES_S, SMS,
             INT32_LANES, clock))
     print(json.dumps({"kernels": [
         kernel_line("chain_v3", "mm2tpu_torch/csrc/chain.cu",
@@ -1111,6 +1368,9 @@ def main() -> int:
         kernel_line("ksw2_extd2", "mm2tpu_torch/csrc/ksw2_extd2.cu",
                     "mm2tpu/ops/ksw2_pallas.py:86", ext_launches, ext_err,
                     ext_times, ext_work, clock),
+        kernel_line("ksw2_exts2", "mm2tpu_torch/csrc/ksw2_exts2.cu",
+                    "mm2tpu/ops/ksw2_pallas.py:847", tx[3], s2_err,
+                    s2_times, s2_work, clock),
     ]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -559,13 +559,6 @@ def _unsupported(args, mo: MapOptions) -> Optional[str]:
         return "--split-prefix (ROADMAP M1)"
     if args.profile_trace:
         return "--profile-trace (torch.profiler tracing, ROADMAP M10)"
-    if (mo.flag & MM_F_SPLICE) and (mo.flag & MM_F_CIGAR) and \
-            mo.align_backend == "gpu":
-        # the splice fills need the exts2 kernel: sending them to the host
-        # under `gpu` would be a hidden fallback
-        return ("-x splice / --splice with -a/-c and --align-backend gpu "
-                "(the splice extension kernel, ROADMAP M6; "
-                "--align-backend host runs the splice fills on the host)")
     return None
 
 
@@ -576,23 +569,26 @@ def build_torch_parser():
     p.set_defaults(map_mode="batch")
     p.add_argument("--device", choices=DEVICES, default="cuda",
                    help="where the chaining DP (and with --align-backend "
-                        "gpu the extension fills) runs: cuda = the Hopper "
-                        "kernels, cpu = their plain PyTorch versions [cuda]")
+                        "gpu the extension and splice fills) runs: cuda = "
+                        "the Hopper kernels, cpu = their plain PyTorch "
+                        "versions [cuda]")
     act = next(a for a in p._actions if a.dest == "align_backend")
     act.choices = ["host", "tpu", "gpu"]
-    act.help = ("gpu = extension fills of at least --align-tpu-min-mat "
-                "cells, batched across reads, on --device (bit-exact); "
-                "host = the native extension")
+    act.help = ("gpu = extension fills (extd2, and exts2 for spliced "
+                "reads) of at least --align-tpu-min-mat cells, batched "
+                "across reads, on --device (bit-exact); host = the native "
+                "extension")
     return p
 
 
 def main(argv: Optional[List[str]] = None, *, chain_fn=None,
-         ext_fn=None) -> int:
+         ext_fn=None, exts2_fn=None) -> int:
     """Run the CLI on `argv`; returns the exit code. `chain_fn` replaces
     the chaining function of every batch (see
-    `ops.chain_packed.chain_scores_packed`) and `ext_fn` the extension
-    function of every flush of `--align-backend gpu` (see
-    `ops.ksw2_extd2.extd2_batch`): a check runs the same arguments
+    `ops.chain_packed.chain_scores_packed`), `ext_fn` and `exts2_fn` the
+    extension function of every extd2 and splice flush of
+    `--align-backend gpu` (see `ops.ksw2_extd2.extd2_batch` and
+    `ops.ksw2_exts2.exts2_batch`): a check runs the same arguments
     through the kernels' plain versions with them."""
     argv = argv if argv is not None else sys.argv[1:]
     # ketopt optional-argument semantics (as mm2tpu.cli.main)
@@ -630,7 +626,8 @@ def main(argv: Optional[List[str]] = None, *, chain_fn=None,
     out = open(args.output, "w") if args.output and args.output != "-" \
         else sys.stdout
     try:
-        rc = _run(args, argv, io, mo, device, out, chain_fn, ext_fn)
+        rc = _run(args, argv, io, mo, device, out, chain_fn, ext_fn,
+                  exts2_fn)
     finally:
         if out is not sys.stdout:
             out.close()
@@ -642,7 +639,7 @@ def main(argv: Optional[List[str]] = None, *, chain_fn=None,
 
 
 def _run(args, argv, io, mo: MapOptions, device, out, chain_fn,
-         ext_fn) -> int:
+         ext_fn, exts2_fn) -> int:
     parts = index_parts(args.target, io, n_threads=args.t)
     with profiling.stage("index"):
         mi = next(parts, None)
@@ -705,7 +702,7 @@ def _run(args, argv, io, mo: MapOptions, device, out, chain_fn,
         if args.query:
             mapopt_update(mo, mi)
             n_mapped = map_all(args.query, mi, mo, out, device, chain_fn,
-                               ext_fn)
+                               ext_fn, exts2_fn)
             timing.log("worker_pipeline", "mapped %d sequences" % n_mapped)
         n_parts += 1
         mi = nxt
@@ -713,7 +710,7 @@ def _run(args, argv, io, mo: MapOptions, device, out, chain_fn,
 
 
 def map_batch(mi, mo: MapOptions, batch, consume, device,
-              chain_fn=None, ext_fn=None) -> None:
+              chain_fn=None, ext_fn=None, exts2_fn=None) -> None:
     """Batched mapping of one mini-batch (mm2tpu.cli._map_batch): paired
     orientation and INDEPEND_SEG splitting as in mm2tpu.cli."""
     from .mapping.pipeline import map_frags_batched
@@ -736,7 +733,8 @@ def map_batch(mi, mo: MapOptions, batch, consume, device,
             meta.append((fi, None))
     ress = map_frags_batched(mi, [t[0] for t in tasks], mo,
                              [t[1] for t in tasks], device,
-                             chain_fn=chain_fn, ext_fn=ext_fn)
+                             chain_fn=chain_fn, ext_fn=ext_fn,
+                             exts2_fn=exts2_fn)
     frag_res = {}
     for (fi, seg), r in zip(meta, ress):
         if seg is None or fi not in frag_res:
@@ -759,7 +757,7 @@ def map_batch(mi, mo: MapOptions, batch, consume, device,
 
 
 def map_all(query_paths, mi, mo: MapOptions, out, device,
-            chain_fn=None, ext_fn=None) -> int:
+            chain_fn=None, ext_fn=None, exts2_fn=None) -> int:
     """Map every query mini-batch against one index part and emit in
     input order. Returns the number of sequences mapped."""
     reader = FastxReader(query_paths, mo.mini_batch_size,
@@ -773,7 +771,8 @@ def map_all(query_paths, mi, mo: MapOptions, out, device,
             emit(mi, mo, frag, res, out)
 
     for batch in reader.batches():
-        map_batch(mi, mo, batch, consume, device, chain_fn, ext_fn)
+        map_batch(mi, mo, batch, consume, device, chain_fn, ext_fn,
+                  exts2_fn)
     return n_mapped
 
 

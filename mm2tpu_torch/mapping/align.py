@@ -9,8 +9,8 @@ extension, CIGAR fixups and stats (align.c:565-920).
 The port's copy of `mm2tpu/mapping/align.py`, verbatim apart from its
 imports and its TPU branches: the two `ksw2_pallas` calls of
 `align_pair` (splice and extd2 fills under `--align-backend tpu`) are
-not copied; a fill of `--align-backend gpu` reaches the device through
-the port's `extbatch.current()`.
+not copied; an extd2 or splice fill of `--align-backend gpu` reaches the
+device through the port's `extbatch.current()`.
 """
 from __future__ import annotations
 
@@ -414,6 +414,15 @@ def align_pair(opt: MapOptions, qseq, tseq, junc, mat, w: int,
         ez.zdropped = True
         return ez
     if opt.flag & MM_F_SPLICE:
+        from . import extbatch
+        _bat = extbatch.current()
+        if _bat is not None and qlen * tlen >= _bat.min_cells:
+            # the splice counterpart of the batched dispatch below (the
+            # JAX package sends these fills to exts2_batch)
+            return _bat.submit_exts2(qseq, tseq, junc,
+                                     np.asarray(mat, np.int8), opt.q, opt.e,
+                                     opt.q2, opt.noncan, zdrop,
+                                     opt.junc_bonus, flag)
         if _native_exts2():
             from ..native import lib as native_lib
             return native_lib.ksw_exts2(

@@ -6,11 +6,14 @@ sequential per read, so batching across reads uses threads: N reads run
 align1 concurrently; each `align_pair` fill of at least `min_cells`
 cells posts a request to the `TorchExtBatcher` that `worker_scope`
 installed on its thread (`current()`) and blocks on its future. A group
-(fills of one parameter set: mat, gaps, w, zdrop, flag) is flushed when
-every live worker waits or the group is full. A flush runs through the
-port's `ops.ksw2_extd2.extd2_batch` on the batcher's device, and groups
-are flushed one at a time, so that fills gather while the device works.
-Smaller fills run inline on the host's native extension.
+(fills of one kind and parameter set: extd2 fills by mat, gaps, w,
+zdrop, end_bonus and flag; splice fills by mat, q, e, q2, noncan, zdrop,
+junc_bonus and flag) is flushed when every live worker waits or the
+group is full. A flush runs through the port's
+`ops.ksw2_extd2.extd2_batch` or `ops.ksw2_exts2.exts2_batch` on the
+batcher's device, and groups are flushed one at a time, so that fills
+gather while the device works. Smaller fills run inline on the host's
+native extension.
 """
 from __future__ import annotations
 
@@ -23,19 +26,22 @@ import numpy as np
 import torch
 
 from ..ops.ksw2_extd2 import extd2_batch
+from ..ops.ksw2_exts2 import exts2_batch
 
 
 class TorchExtBatcher:
-    """Batching service for extd2 fills across concurrently aligned reads,
-    whose flushes run on `device` ("cuda" or "cpu"). `ext_fn` replaces the
-    extension function of every flush (see `extd2_batch`'s `fn`)."""
+    """Batching service for extd2 and splice fills across concurrently
+    aligned reads, whose flushes run on `device` ("cuda" or "cpu").
+    `ext_fn` and `exts2_fn` replace the extension function of every extd2
+    and splice flush (see the `fn` of `extd2_batch` and `exts2_batch`)."""
 
     def __init__(self, device, max_batch: int = 64, min_cells: int = 0,
-                 ext_fn=None):
+                 ext_fn=None, exts2_fn=None):
         self.device = torch.device(device)
         self.max_batch = max_batch
         self.min_cells = min_cells
         self.ext_fn = ext_fn
+        self.exts2_fn = exts2_fn
         self._lock = threading.Condition()
         self._pending: Dict[tuple, List[Tuple[tuple, Future]]] = {}
         self._n_pending = 0
@@ -58,13 +64,25 @@ class TorchExtBatcher:
     # -- fill submission ----------------------------------------------------
     def submit(self, qseq, tseq, mat, q, e, q2, e2, w, zdrop, end_bonus,
                flag):
-        """Blocking: returns the ExtzResult once a flush covers this fill."""
-        key = (mat.tobytes(), q, e, q2, e2, w, zdrop, end_bonus, flag)
+        """Blocking: returns the extd2 ExtzResult once a flush covers this
+        fill."""
+        return self._post(("extd2", mat.tobytes(), q, e, q2, e2, w, zdrop,
+                           end_bonus, flag), qseq, tseq, None, mat)
+
+    def submit_exts2(self, qseq, tseq, junc, mat, q, e, q2, noncan, zdrop,
+                     junc_bonus, flag):
+        """Blocking: returns the splice ExtzResult once a flush covers this
+        fill. `junc` (the fill's --junc-bed flags, or None) travels with
+        the fill, outside the group key."""
+        return self._post(("exts2", mat.tobytes(), q, e, q2, noncan, zdrop,
+                           junc_bonus, flag), qseq, tseq, junc, mat)
+
+    def _post(self, key, qseq, tseq, junc, mat):
         fut: Future = Future()
         with self._lock:
             self._pending.setdefault(key, []).append(
                 ((np.asarray(qseq, np.uint8), np.asarray(tseq, np.uint8),
-                  mat), fut))
+                  junc, mat), fut))
             self._n_pending += 1
             self._blocked += 1
             self._maybe_flush_locked()
@@ -110,9 +128,8 @@ class TorchExtBatcher:
             self._lock.notify_all()
 
     def _run_group(self, key, group):
-        _, q, e, q2, e2, w, zdrop, end_bonus, flag = key
-        tasks = [(t[0][0], t[0][1]) for t in group]
-        mat = group[0][0][2]
+        kind, _, *params = key
+        mat = group[0][0][3]
         # the flushing thread is a pool worker: it does not inherit the
         # main thread's current CUDA device
         on_device = torch.cuda.device(self.device) \
@@ -120,11 +137,15 @@ class TorchExtBatcher:
         try:
             with on_device:
                 self.n_dispatches += 1
-                self.n_batched += len(tasks)
-                results = extd2_batch(tasks, mat, q=q, e=e, q2=q2, e2=e2,
-                                      w=w, zdrop=zdrop, end_bonus=end_bonus,
-                                      flag=flag, device=self.device,
-                                      fn=self.ext_fn)
+                self.n_batched += len(group)
+                if kind == "exts2":
+                    results = exts2_batch([t[0][:3] for t in group], mat,
+                                          *params, device=self.device,
+                                          fn=self.exts2_fn)
+                else:
+                    results = extd2_batch([t[0][:2] for t in group], mat,
+                                          *params, device=self.device,
+                                          fn=self.ext_fn)
             for (_, fut), rz in zip(group, results):
                 fut.set_result(rz)
         except Exception as err:  # noqa: BLE001 - raised in every waiter

@@ -232,16 +232,17 @@ def _count_host_fills():
     """Under --profile, count the fills that stay on the host's native
     extension (below `--align-tpu-min-mat`) as `ext.host_fills`. The port's
     align code looks its native entry points up on its own `native.lib`
-    at each call: `ksw_extd2` and `ksw_extd2_fill_ref`
-    run one fill, `ksw_fill_walk` a read's whole seed-gap walk (it
-    returns how many fills it ran first). They are wrapped for the
-    duration, in this process only."""
+    at each call: `ksw_extd2`, `ksw_extd2_fill_ref` and `ksw_exts2` (a
+    splice fill) run one fill, `ksw_fill_walk` a read's whole seed-gap
+    walk (it returns how many fills it ran first). They are wrapped for
+    the duration, in this process only."""
     if not profiling.enabled:
         yield
         return
     per_call = {"ksw_extd2": lambda out: 1,
                 "ksw_extd2_fill_ref": lambda out: 1,
-                "ksw_fill_walk": lambda out: out[0]}
+                "ksw_fill_walk": lambda out: out[0],
+                "ksw_exts2": lambda out: 1}
     saved = {name: getattr(native, name) for name in per_call}
 
     def counted(name, fn):
@@ -262,8 +263,8 @@ def _count_host_fills():
 
 def map_frags_batched(mi: MMIndex, frag_seqs: Sequence[Sequence[str]],
                       opt: MapOptions, qnames: Sequence[Optional[str]],
-                      device, *, chain_fn=None,
-                      ext_fn=None) -> List[FragResult]:
+                      device, *, chain_fn=None, ext_fn=None,
+                      exts2_fn=None) -> List[FragResult]:
     """Map many fragments with batched chaining on `device` ("cuda" or
     "cpu"): fragments are seeded on the host, their anchor arrays grouped
     into fixed (B, N) buckets, and each bucket chained in one call, then
@@ -280,12 +281,13 @@ def map_frags_batched(mi: MMIndex, frag_seqs: Sequence[Sequence[str]],
     function (see `ops.chain_packed.chain_scores_packed`).
 
     With `opt.align_backend == "gpu"` and CIGARs on, the reads are
-    aligned on a pool of up to 32 threads. Every extd2 fill of at least
-    `opt.align_tpu_min_mat` cells goes to a `TorchExtBatcher` on `device`
-    (up to 64 fills a flush); smaller fills run inline on the host's
-    native extension, the JAX package's placement rule. `ext_fn`
-    replaces the extension function of every flush (see
-    `ops.ksw2_extd2.extd2_batch`)."""
+    aligned on a pool of up to 32 threads. Every extd2 or splice fill of
+    at least `opt.align_tpu_min_mat` cells goes to a `TorchExtBatcher` on
+    `device` (up to 64 fills a flush); smaller fills run inline on the
+    host's native extension, the JAX package's placement rule. `ext_fn`
+    and `exts2_fn` replace the extension function of every extd2 and
+    splice flush (see `ops.ksw2_extd2.extd2_batch` and
+    `ops.ksw2_exts2.exts2_batch`)."""
     if opt.seed_backend == "tpu":
         raise NotImplementedError(
             "device seeding (--seed-backend tpu) is not ported yet "
@@ -294,11 +296,6 @@ def map_frags_batched(mi: MMIndex, frag_seqs: Sequence[Sequence[str]],
         raise NotImplementedError(
             "--align-backend tpu runs the Pallas kernels; the port's "
             "device extension is --align-backend gpu")
-    if opt.align_backend == "gpu" and (opt.flag & MM_F_CIGAR) and \
-            (opt.flag & MM_F_SPLICE):
-        raise NotImplementedError(
-            "splice fills on the device need the exts2 kernel (ROADMAP "
-            "M6); --align-backend host runs them on the host")
     dev = resolve_device(device)
     on_cuda = dev.type == "cuda"
     results: List[Optional[FragResult]] = [None] * len(frag_seqs)
@@ -425,7 +422,7 @@ def map_frags_batched(mi: MMIndex, frag_seqs: Sequence[Sequence[str]],
     if opt.align_backend == "gpu" and (opt.flag & MM_F_CIGAR) and pending:
         batcher = TorchExtBatcher(dev, max_batch=64,
                                   min_cells=opt.align_tpu_min_mat,
-                                  ext_fn=ext_fn)
+                                  ext_fn=ext_fn, exts2_fn=exts2_fn)
 
         def post_one(i):
             with worker_scope(batcher):

@@ -85,11 +85,13 @@ def _sf_image(t8: np.ndarray, Tpad: int, qr: np.ndarray) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# copied verbatim from mm2tpu/ops/ksw2_pallas.py:688-710
+# copied from mm2tpu/ops/ksw2_pallas.py:688-710, with `min_intron_len`
+# added: the leftover i-run is N (op 3) when it reaches it, as in
+# _backtrack_abs (:511-513)
 def _cigar_from_ops(ops_row: np.ndarray, i_fin: int, j_fin: int,
-                    rev_cigar: bool) -> List[int]:
-    """Host tail of trace_device: RLE the op codes + the final D/I runs,
-    reproducing _backtrack_abs's _push_cigar merging exactly."""
+                    rev_cigar: bool, min_intron_len: int = 0) -> List[int]:
+    """Host tail of trace_device: RLE the op codes + the final D/N and I
+    runs, reproducing _backtrack_abs's _push_cigar merging exactly."""
     n = int(np.argmax(ops_row == 255)) if ops_row[-1] == 255 else \
         len(ops_row)
     if n == 0 and ops_row[0] == 255:
@@ -103,7 +105,8 @@ def _cigar_from_ops(ops_row: np.ndarray, i_fin: int, j_fin: int,
         for s, t in zip(starts, ends):
             _push_cigar(cigar, int(v[s]), int(t - s))
     if i_fin >= 0:
-        _push_cigar(cigar, 2, i_fin + 1)
+        _push_cigar(cigar, 3 if 0 < min_intron_len <= i_fin else 2,
+                    i_fin + 1)
     if j_fin >= 0:
         _push_cigar(cigar, 1, j_fin + 1)
     if not rev_cigar:
@@ -137,12 +140,20 @@ class Packed:
     """One flush's fills, packed on the host (`extd2_batch`'s layout
     without the shape ladder): `run_idx` are the task indices that run;
     lens (B, 2) int32 = [qlen, tlen]; tsf (B, Tpad) uint8, the sf image
-    of each target; qcol (B, Qpad) uint8, each query zero-padded."""
+    of each target; qcol (B, Qpad) uint8, each query zero-padded. Splice
+    fills add don, acc (B, Tpad) int32, the donor and acceptor scores of
+    each target column (`ksw2_exts2.pack_splice_fills`)."""
 
-    def __init__(self, run_idx, lens, tsf, qcol, sc_mch, sc_mis, sc_N):
+    def __init__(self, run_idx, lens, tsf, qcol, sc_mch, sc_mis, sc_N,
+                 don=None, acc=None):
         self.run_idx = run_idx
         self.lens, self.tsf, self.qcol = lens, tsf, qcol
         self.sc_mch, self.sc_mis, self.sc_N = sc_mch, sc_mis, sc_N
+        self.don, self.acc = don, acc
+
+    def planes(self):
+        return [a for a in (self.lens, self.tsf, self.qcol, self.don,
+                            self.acc) if a is not None]
 
 
 def pack_fills(tasks: Sequence[tuple], mat, q: int, e: int, q2: int,
@@ -202,10 +213,12 @@ def _geometry(lens_h: np.ndarray, w: int, R: int):
     return st0, en0, st, en, alive, n_rows
 
 
-def _next_state_table() -> np.ndarray:
+def _next_state_table(intron: bool = False) -> np.ndarray:
     """The `_backtrack_abs` state machine as a table: entry state * 130 +
     code gives sn * 4 + op, for code = the direction byte (0..127), 128 =
-    below the band (forced D) and 129 = above it (forced I)."""
+    below the band (forced D) and 129 = above it (forced I). With
+    `intron` (the splice fills' min_intron_len > 0) state 3 is N (op 3),
+    else a long deletion (op 2)."""
     tbl = np.zeros(5 * 130, np.int64)
     for state in range(5):
         for code in range(130):
@@ -216,7 +229,8 @@ def _next_state_table() -> np.ndarray:
                 s1 = tmp & 7 if state == 0 else \
                     (0 if ((tmp >> (state + 2)) & 1) == 0 else state)
                 sn = tmp & 7 if s1 == 0 else s1
-            op = 0 if sn == 0 else (2 if sn in (1, 3) else 1)
+            op = 0 if sn == 0 else (3 if sn == 3 and intron else
+                                    2 if sn in (1, 3) else 1)
             tbl[state * 130 + code] = sn * 4 + op
     return tbl
 
@@ -518,13 +532,14 @@ def _trace_start(rg, qlen, tlen, extz_only: bool, end_bonus: int):
 _NEXT = _next_state_table()
 
 
-def _trace_reference(plane, st, en, i0, j0, Smax: int):
+def _trace_reference(plane, st, en, i0, j0, Smax: int, table=_NEXT):
     """`trace_device` over the band plane, vectorised over fills: the
-    `_backtrack_abs` state machine, one op code a step. st, en (R, B)
-    int64: every row's 16-aligned band."""
+    `_backtrack_abs` state machine (`table`), one op code a step; M and
+    I step j, M, D and N step i. st, en (R, B) int64: every row's
+    16-aligned band."""
     R, B, cap = plane.shape
     dev = plane.device
-    nxt = torch.from_numpy(_NEXT).to(dev)
+    nxt = torch.from_numpy(table).to(dev)
     flat = plane.view(-1)
     st, en = st.reshape(-1), en.reshape(-1)
     bidx = torch.arange(B, dtype=torch.int64, device=dev)
@@ -542,7 +557,7 @@ def _trace_reference(plane, st, en, i0, j0, Smax: int):
         nx = nxt.take(state * 130 + code)
         opc = nx & 3
         i = torch.where(act & (opc != 1), i - 1, i)
-        j = torch.where(act & (opc != 2), j - 1, j)
+        j = torch.where(act & (opc < 2), j - 1, j)
         state = torch.where(act, nx >> 2, state)
         ops[:, k] = torch.where(act, opc, 255)
     return ops, i, j
@@ -630,6 +645,55 @@ def extd2_traced(lens, tsf, qcol, *, q: int, e: int, q2: int, e2: int,
     return ez, ops, ij[:, 0], ij[:, 1]
 
 
+def run_packed(pk: Packed, device, call, cells: float):
+    """Upload the packed planes of one flush to `device`, run
+    `call(*planes)` -> (ez, ops, i_fin, j_fin) there and bring the four
+    back as numpy arrays. Under --profile, count the flush (`ext.*`) and
+    time its card work (`ext.gpu_busy`)."""
+    dev = torch.device(device)
+    on_cuda = dev.type == "cuda"
+    arrays = pk.planes()
+    if on_cuda:
+        planes = [torch.from_numpy(a).pin_memory().to(dev, non_blocking=True)
+                  for a in arrays]
+    else:
+        planes = [torch.from_numpy(a).to(dev) for a in arrays]
+    busy = None
+    if on_cuda and profiling.enabled:
+        busy = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        busy[0].record()
+    out = call(*planes)
+    if busy is not None:
+        busy[1].record()
+    out = [t.cpu().numpy() for t in out]
+
+    if profiling.enabled:  # align-stage transport evidence
+        profiling.count("ext.dispatches", 1)
+        profiling.count("ext.fills", len(pk.run_idx))
+        profiling.count("ext.bytes_up", sum(a.nbytes for a in arrays))
+        profiling.count("ext.bytes_down", sum(a.nbytes for a in out))
+        profiling.count("ext.cells", float(cells))
+        if busy is not None:
+            # card time from the first op after the upload to the last op
+            # of the kernel (the readback above synchronised the stream)
+            profiling.add("ext.gpu_busy", busy[0].elapsed_time(busy[1]) / 1e3)
+    return out
+
+
+def set_ez_fields(rz: ExtzResult, ez_row: np.ndarray) -> None:
+    """The ExtzResult fields that the ez registers carry."""
+    rz.zdropped = bool(ez_row[R_ZDROP])
+    rz.max = int(ez_row[R_MAX])
+    rz.max_q = int(ez_row[R_MAXQ])
+    rz.max_t = int(ez_row[R_MAXT])
+    rz.mqe = int(ez_row[R_MQE])
+    rz.mqe_t = int(ez_row[R_MQET])
+    rz.mte = int(ez_row[R_MTE])
+    rz.mte_q = int(ez_row[R_MTEQ])
+    rz.score = int(ez_row[R_SCORE])
+
+
 def extd2_batch(tasks: Sequence[tuple], mat, q: int, e: int, q2: int,
                 e2: int, w: int, zdrop: int, end_bonus: int, flag: int, *,
                 device, fn=None) -> List[ExtzResult]:
@@ -644,59 +708,22 @@ def extd2_batch(tasks: Sequence[tuple], mat, q: int, e: int, q2: int,
     run_idx = pk.run_idx
     if not run_idx:
         return results
-    dev = torch.device(device)
-    on_cuda = dev.type == "cuda"
-    if on_cuda:
-        planes = [torch.from_numpy(a).pin_memory().to(dev, non_blocking=True)
-                  for a in (pk.lens, pk.tsf, pk.qcol)]
-    else:
-        planes = [torch.from_numpy(a).to(dev)
-                  for a in (pk.lens, pk.tsf, pk.qcol)]
-    busy = None
-    if on_cuda and profiling.enabled:
-        busy = (torch.cuda.Event(enable_timing=True),
-                torch.cuda.Event(enable_timing=True))
-        busy[0].record()
-    ez, ops, i_f, j_f = fn(
+    cells = sum((min(2 * w + 1, len(tasks[i][0])) if w >= 0
+                 else len(tasks[i][0])) * len(tasks[i][1]) for i in run_idx)
+    ez, ops, i_f, j_f = run_packed(pk, device, lambda *planes: fn(
         *planes, q=q, e=e, q2=q2, e2=e2, zdrop=zdrop, sc_mch=pk.sc_mch,
         sc_mis=pk.sc_mis, sc_N=pk.sc_N, w=w, right=bool(flag & KSW_EZ_RIGHT),
         approx=bool(flag & KSW_EZ_APPROX_MAX),
         approx_drop=bool(flag & KSW_EZ_APPROX_DROP),
-        extz_only=bool(flag & KSW_EZ_EXTZ_ONLY), end_bonus=int(end_bonus))
-    if busy is not None:
-        busy[1].record()
-    ez, ops, i_f, j_f = (t.cpu().numpy() for t in (ez, ops, i_f, j_f))
-
-    if profiling.enabled:  # align-stage transport evidence
-        profiling.count("ext.dispatches", 1)
-        profiling.count("ext.fills", len(run_idx))
-        profiling.count("ext.bytes_up", pk.lens.nbytes + pk.tsf.nbytes
-                        + pk.qcol.nbytes)
-        profiling.count("ext.bytes_down", ez.nbytes + ops.nbytes
-                        + i_f.nbytes + j_f.nbytes)
-        profiling.count("ext.cells", float(sum(
-            min(2 * w + 1, len(tasks[i][0])) * len(tasks[i][1])
-            for i in run_idx)) if w >= 0 else float(sum(
-                len(tasks[i][0]) * len(tasks[i][1]) for i in run_idx)))
-        if busy is not None:
-            # card time from the first op after the upload to the last op
-            # of the kernel (the readback above synchronised the stream)
-            profiling.add("ext.gpu_busy", busy[0].elapsed_time(busy[1]) / 1e3)
+        extz_only=bool(flag & KSW_EZ_EXTZ_ONLY), end_bonus=int(end_bonus)),
+        cells)
 
     rev_cigar = bool(flag & KSW_EZ_REV_CIGAR)
     for bi, i in enumerate(run_idx):
         q8, t8 = tasks[i]
         qlen = len(q8)
         rz = results[i]
-        rz.zdropped = bool(ez[bi, R_ZDROP])
-        rz.max = int(ez[bi, R_MAX])
-        rz.max_q = int(ez[bi, R_MAXQ])
-        rz.max_t = int(ez[bi, R_MAXT])
-        rz.mqe = int(ez[bi, R_MQE])
-        rz.mqe_t = int(ez[bi, R_MQET])
-        rz.mte = int(ez[bi, R_MTE])
-        rz.mte_q = int(ez[bi, R_MTEQ])
-        rz.score = int(ez[bi, R_SCORE])
+        set_ez_fields(rz, ez[bi])
         # the host mirror of the device's start selection (`_start`,
         # ksw2_pallas.py:806-820); it also sets reach_end
         if not rz.zdropped and not (flag & KSW_EZ_EXTZ_ONLY):
