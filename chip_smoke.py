@@ -3,9 +3,17 @@
 (PAF and SAM), -x sr read pairs and -x splice spliced reads (PAF, and
 SAM and PAF with CIGARs through the splice kernel).
 
-Run from the root of a checkout, with no arguments:
+Run from the root of a checkout, with no arguments, for the full gate:
 
     python3 chip_smoke.py
+
+or with `--phases LIST` (for example `--phases 1,3b` to build and try
+the splice kernel, `--phases 1,3b,9` to add the spliced-read path) to run
+phase 0, the named phases and phase 11's import check only; the kernel
+JSON line then lists only the kernels whose phase ran (launches null
+where their path's phase did not run). Phase 6 needs 5, 7 needs 5 and 6,
+and 10 needs 8 and 9: a list that names one without the other is
+refused. Phases 8 and 9 generate the genome of phase 5 themselves.
 
 Phases (any failure exits non-zero; no phase's failure is caught):
   0. the card's name, power limit and SM clock; no CUDA device -> error
@@ -27,10 +35,14 @@ Phases (any failure exits non-zero; no phase's failure is caught):
  3b. the exts2 splice kernel K4 (splice DP, backtrack start and trace)
      against its plain version on the card: seeded two-exon fills across
      a GT-AG intron under the splice preset's scoring, B = 8 (introns of
-     100-1000 bp) under six flag sets (one with --junc-bed flags), and B =
-     64 (exons of 200-400 bp, introns of 2000-8000 bp), with Z-drops and N
-     bases; every ez register, op code and CIGAR equal, both timed at the
-     largest shape
+     100-1000 bp) under six flag sets (one with --junc-bed flags), B = 64
+     (exons of 200-400 bp, introns of 2000-8000 bp), with Z-drops and N
+     bases, and one launch of 3 fills too wide for the kernel's
+     shared-memory ring (exons of 2800-3000 bp; they run on state in
+     device memory, which ksw2_exts2.wide_fills must count) beside 2 that
+     fit it; every ez register, op code and CIGAR equal, both timed at
+     the B = 64 shape, where the kernel's own %globaltimer stamps give
+     its DP time a row and its trace time a step
   4. the chaining kernel K2 (csrc/chain.cu, general contract) against its
      plain version: two-segment batches (read pairs, with cross-segment
      pairs at dr = 0) and single-segment cDNA batches, contracts
@@ -58,9 +70,12 @@ Phases (any failure exits non-zero; no phase's failure is caught):
   9. the -x splice path: 1000 seeded spliced reads to PAF (only K2
      launched), to SAM with `-a --align-backend gpu --align-tpu-min-mat 1`
      (every splice fill on K4: only K2 and K4 launched, no fill left on
-     the host), to SAM with `--align-backend host` (byte-identical
-     without @PG), and the first 250 to PAF with CIGARs (`-c`) through
-     K4; >= 90% of the reads mapped
+     the host; the flushes' serial rows ext.s2_rows, the wide fills
+     ext.s2_wide, K4's card time a row, ext.gpu_busy / ext.s2_rows, and
+     its own time from its stamps, ext.s2_kernel),
+     to SAM with `--align-backend host` (byte-identical without @PG), and
+     the first 250 to PAF with CIGARs (`-c`) through K4; >= 90% of the
+     reads mapped
  10. the first 500 pairs and the first 10 spliced reads mapped again with
      the plain chaining of both contracts on CUDA tensors: their PAF
      lines must be byte-identical to the kernels'; the first 2 spliced
@@ -78,6 +93,7 @@ tests/test_torch_ksw2_extd2.py, tests/test_torch_ksw2_exts2.py).
 """
 from __future__ import annotations
 
+import argparse
 import functools
 import importlib.util
 import json
@@ -186,6 +202,10 @@ OPS_PER_CELL_EXTS2 = 60
 # lengths, intron lengths); the last shape is the timed one, which the
 # kernel line of the JSON reports
 EXTS2_SHAPES = [(8, (80, 400), (100, 1000)), (64, (200, 400), (2000, 8000))]
+# K4's fills too wide for its shared-memory ring (min(qlen, tlen) + 16 >
+# ksw2_exts2.RING_MAX columns, the third one cut to 3/4 of its query),
+# launched beside fills that fit it: (B, exons, introns) of each part
+EXTS2_WIDE = [(3, (2800, 3000), (200, 500)), (2, (80, 400), (100, 1000))]
 # the splice preset's scoring (options.py: -x splice): match 1, mismatch
 # 2, N -1; q, e = 2, 1, intron open q2 = 32, non-canonical 9, junction
 # bonus 9, zdrop 200
@@ -672,8 +692,9 @@ def phase_exts2_kernel_vs_plain():
                       sc_mch=pk.sc_mch, sc_mis=pk.sc_mis, sc_N=pk.sc_N,
                       right=False, approx=False, approx_drop=False,
                       extz_only=False)
-            ms, _ = cuda_ms(functools.partial(S.exts2_traced, *planes, **kw),
-                            3)
+            ms, out = cuda_ms(functools.partial(S.exts2_traced, *planes,
+                                                **kw, lens_h=pk.lens), 3)
+            stamps = S.last_stamps.cpu().numpy()
             plain_ms, _ = cuda_ms(functools.partial(
                 S.exts2_traced_reference, *planes, **kw), 1, warmup=False)
             timed = (ms, plain_ms)
@@ -685,7 +706,86 @@ def phase_exts2_kernel_vs_plain():
             say("3b", "time at B=%d, exons %d-%d, introns %d-%d bp, flag "
                 "SPLICE_FOR|FLANK (%d rows at most): kernel %.3f ms, plain "
                 "%.3f ms" % (B, *exon, *intron, smax, ms, plain_ms))
-    return timed, max_err, work
+            say("3b", stamp_split(pk.lens, out, stamps))
+    return timed, max(max_err, phase_exts2_wide(mat)), work
+
+
+def stamp_split(lens, out, stamps):
+    """K4's DP time a row and trace time a step, from its %globaltimer
+    stamps (start, after the last row, after the trace) of each fill of
+    one launch: the DP over the fills that ran every row (not
+    z-dropped), the trace over every fill's steps (op codes != 255)."""
+    ez, ops = (t.cpu().numpy() for t in out[:2])
+    rows = lens.astype(np.int64).sum(1) - 1
+    full = ez[:, 0] == 0
+    dp_ns, tr_ns = stamps[:, 1] - stamps[:, 0], stamps[:, 2] - stamps[:, 1]
+    steps = (ops != 255).sum(1)
+    k = int(np.argmax(np.where(full, rows, -1)))
+    return ("kernel stamps: DP %.3f us a row (%d fills that ran every row, "
+            "%d rows); its longest fill %d rows in %.3f ms, %.3f us a row; "
+            "trace %.1f ns a step (%d steps over %d fills); whole launch "
+            "%.3f ms from the first start to the last stamp" % (
+                dp_ns[full].sum() / 1e3 / rows[full].sum(), int(full.sum()),
+                int(rows[full].sum()), rows[k], dp_ns[k] / 1e6,
+                dp_ns[k] / 1e3 / rows[k], tr_ns.sum() / max(steps.sum(), 1),
+                int(steps.sum()), len(steps),
+                (stamps[:, 2].max() - stamps[:, 0].min()) / 1e6))
+
+
+def phase_exts2_wide(mat):
+    """K4 against its plain version on one launch of EXTS2_WIDE's fills:
+    the wide part's fills exceed the shared-memory ring and must run on
+    state in device memory (ksw2_exts2.wide_fills counts them), the rest
+    on the ring; every ez register, op code, (i, j) and CIGAR equal.
+    Returns the max abs error."""
+    from mm2tpu_torch.ops import ksw2_exts2 as S
+    (nw, exon_w, intron_w), (nn, exon_n, intron_n) = EXTS2_WIDE
+    fills = synth_splice_fills(nw, exon_w, intron_w, seed=402) + \
+        synth_splice_fills(nn, exon_n, intron_n, seed=403)
+    flag = EXTS2_FLAGS["SPLICE_FOR|FLANK"][0]
+    lens = np.array([(len(q8), len(t8)) for q8, t8, _ in fills])
+    W, smem, wide = S.ring_plan(lens)
+    if list(wide) != [True] * nw + [False] * nn:
+        raise AssertionError("EXTS2_WIDE: ring_plan's wide mask %s for "
+                             "lengths %s" % (wide, lens.tolist()))
+    raw = {}
+
+    def keep(tag, fn):
+        def run(*a, **kw):
+            raw[tag] = fn(*a, **kw)
+            return raw[tag]
+        return run
+
+    args = (fills, mat, *SPLICE_GAPS.values(), SPLICE_ZDROP,
+            SPLICE_JUNC_BONUS, flag)
+    before = S.wide_fills
+    t0 = time.perf_counter()
+    kern = S.exts2_batch(*args, device=DEVICE,
+                         fn=keep("kernel", S.exts2_traced))
+    torch.cuda.synchronize()
+    k_s = time.perf_counter() - t0
+    counted = S.wide_fills - before
+    t0 = time.perf_counter()
+    plain = S.exts2_batch(*args, device=DEVICE,
+                          fn=keep("plain", S.exts2_traced_reference))
+    p_s = time.perf_counter() - t0
+    err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+              for a, b in zip(raw["kernel"], raw["plain"]))
+    same = all(torch.equal(a, b) for a, b in zip(raw["kernel"], raw["plain"]))
+    bad = [(i, f) for i, (k, p) in enumerate(zip(kern, plain))
+           for f in EZ_FIELDS if getattr(k, f) != getattr(p, f)]
+    if not same or bad or counted != nw:
+        raise AssertionError("exts2 wide launch: kernel == plain %s, fields "
+                             "%s, wide_fills counted %d of %d"
+                             % (same, bad[:5], counted, nw))
+    say("3b", "K4 == plain on one launch of %d wide fills (lengths %s, on "
+        "state in device memory, wide_fills +%d) and %d that fit a ring "
+        "of W = %d (%d B of shared memory): %d CIGARs, %d with an intron "
+        "(N); %.3f s with the kernel, %.3f s with the plain version" % (
+            nw, lens[:nw].tolist(), counted, nn, W, smem,
+            sum(bool(r.cigar) for r in kern),
+            sum(any(c & 15 == 3 for c in r.cigar) for r in kern), k_s, p_s))
+    return err
 
 
 def load_make_workload():
@@ -696,15 +796,25 @@ def load_make_workload():
     return mod
 
 
+_workloads = {}
+
+
+def workload(tmp, phase):
+    """(genome FASTA, reads FASTA) of WORKLOAD in `tmp`, generated once."""
+    if tmp not in _workloads:
+        t0 = time.perf_counter()
+        _workloads[tmp] = load_make_workload().make(tmp, **WORKLOAD)
+        say(phase, "workload generated in %.3f s: %s" % (
+            time.perf_counter() - t0,
+            ", ".join(os.path.basename(f) for f in _workloads[tmp])))
+    return _workloads[tmp]
+
+
 def phase_main_path(tmp):
     from mm2tpu_torch import cli
     from mm2tpu_torch.ops import chain_v3
     from mm2tpu_torch.utils import profiling
-    t0 = time.perf_counter()
-    ref, reads = load_make_workload().make(tmp, **WORKLOAD)
-    say(5, "workload generated in %.3f s: %s, %s"
-        % (time.perf_counter() - t0, os.path.basename(ref),
-           os.path.basename(reads)))
+    ref, reads = workload(tmp, 5)
     paf = os.path.join(tmp, "out.paf")
     chain_v3.launches = 0
     chain_v3.reference_calls = 0
@@ -1190,6 +1300,14 @@ def phase_splice(tmp, ref):
                     "-x splice SAM: ext.fills %s, ext.host_fills %s" % (
                         ctr.get("ext.fills"), ctr.get("ext.host_fills")))
             report(9, "SAM through K4", w, SPLICE_READS, st, ctr)
+            say(9, "SAM through K4: ext.s2_rows %d (the flushes' longest "
+                "fills' rows), ext.s2_wide %d, ext.gpu_busy / ext.s2_rows "
+                "%.3f us a row; the kernel's own time (its stamps) "
+                "ext.s2_kernel %.3f s, %.3f us a row" % (
+                    ctr["ext.s2_rows"], ctr.get("ext.s2_wide", 0),
+                    st["ext.gpu_busy"][0] * 1e6 / ctr["ext.s2_rows"],
+                    st["ext.s2_kernel"][0],
+                    st["ext.s2_kernel"][0] * 1e6 / ctr["ext.s2_rows"]))
             k4 = c["ksw2_exts2"][0]
         else:
             only_k2(9, "SAM through the host splice extension", c)
@@ -1318,29 +1436,62 @@ def kernel_line(name, source, replaces, launches, max_err, times, work,
             "library_ms": None}
 
 
-def main() -> int:
+PHASES = ("1", "2", "3", "3b", "4", "5", "6", "7", "8", "9", "10")
+# phases that take another phase's outputs
+NEEDS = {"6": ("5",), "7": ("5", "6"), "10": ("8", "9")}
+
+
+def parse_phases(argv):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", help="comma-separated phases to run "
+                    "besides 0 and 11 (default: all of %s)" % ",".join(PHASES))
+    opts = ap.parse_args(argv)
+    if opts.phases is None:
+        return set(PHASES)
+    sel = {x.strip() for x in opts.phases.split(",")} - {"", "0", "11"}
+    if sel - set(PHASES):
+        ap.error("unknown phases %s (phases: %s)"
+                 % (",".join(sorted(sel - set(PHASES))), ",".join(PHASES)))
+    for ph in sorted(sel):
+        missing = [n for n in NEEDS.get(ph, ()) if n not in sel]
+        if missing:
+            ap.error("phase %s needs the outputs of phase %s: name it too"
+                     % (ph, " and ".join(missing)))
+    return sel
+
+
+def main(argv=None) -> int:
+    run = parse_phases(argv)
     say(0, card_line())
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is False: this script "
                            "runs the port on a CUDA card only")
     clock = sm_clock_mhz()
-    say(0, "torch %s, CUDA %s, %s, max SM clock %g MHz" % (
+    say(0, "torch %s, CUDA %s, %s, max SM clock %g MHz; phases %s" % (
         torch.__version__, torch.version.cuda, torch.cuda.get_device_name(0),
-        clock))
-    phase_build()
-    times, max_err, work = phase_kernel_vs_plain()
-    ext_times, ext_err, ext_work = phase_ext_kernel_vs_plain()
-    s2_times, s2_err, s2_work = phase_exts2_kernel_vs_plain()
-    v2_times, v2_err, v2_work = phase_v2_kernel_vs_plain()
+        clock, ",".join(p for p in PHASES if p in run)))
+    if "1" in run:
+        phase_build()
+    k1 = phase_kernel_vs_plain() if "2" in run else None
+    k3 = phase_ext_kernel_vs_plain() if "3" in run else None
+    k4 = phase_exts2_kernel_vs_plain() if "3b" in run else None
+    k2 = phase_v2_kernel_vs_plain() if "4" in run else None
+    launches = ext_launches = sr = tx = None
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        ref, reads, lines, launches = phase_main_path(tmp)
-        sam, ext_launches = phase_sam(tmp, ref, reads)
-        recs = phase_parity(tmp, ref, reads, lines)
-        phase_ext_parity(tmp, ref, recs, sam)
-        sr = phase_sr(tmp, ref)
-        tx = phase_splice(tmp, ref)
-        phase_v2_parity(tmp, ref, sr, tx)
-        phase_exts2_parity(tmp, ref, tx)
+        if "5" in run:
+            ref, reads, lines, launches = phase_main_path(tmp)
+        if "6" in run:
+            sam, ext_launches = phase_sam(tmp, ref, reads)
+        if "7" in run:
+            recs = phase_parity(tmp, ref, reads, lines)
+            phase_ext_parity(tmp, ref, recs, sam)
+        if "8" in run:
+            sr = phase_sr(tmp, workload(tmp, 8)[0])
+        if "9" in run:
+            tx = phase_splice(tmp, workload(tmp, 9)[0])
+        if "10" in run:
+            phase_v2_parity(tmp, ref, sr, tx)
+            phase_exts2_parity(tmp, ref, tx)
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "mm2tpu"))
     if bad:
@@ -1358,20 +1509,34 @@ def main() -> int:
             B, N, *V2_SHAPES[-1], *EXT_SHAPES[-1][:3], EXTS2_SHAPES[-1][0],
             *EXTS2_SHAPES[-1][1], *EXTS2_SHAPES[-1][2], HBM_BYTES_S, SMS,
             INT32_LANES, clock))
-    print(json.dumps({"kernels": [
-        kernel_line("chain_v3", "mm2tpu_torch/csrc/chain.cu",
-                    "mm2tpu/ops/chain_pallas_v3.py:48", launches, max_err,
-                    times[SHAPES[-1]], work, clock),
-        kernel_line("chain_v2", "mm2tpu_torch/csrc/chain.cu",
-                    "mm2tpu/ops/chain_pallas_v2.py:142", sr[3] + tx[2],
-                    v2_err, v2_times[(True, 1)], v2_work, clock),
-        kernel_line("ksw2_extd2", "mm2tpu_torch/csrc/ksw2_extd2.cu",
-                    "mm2tpu/ops/ksw2_pallas.py:86", ext_launches, ext_err,
-                    ext_times, ext_work, clock),
-        kernel_line("ksw2_exts2", "mm2tpu_torch/csrc/ksw2_exts2.cu",
-                    "mm2tpu/ops/ksw2_pallas.py:847", tx[3], s2_err,
-                    s2_times, s2_work, clock),
-    ]}), flush=True)
+    k2_launches = None if sr is None and tx is None else \
+        (sr[3] if sr else 0) + (tx[2] if tx else 0)
+    lines = []
+    if k1:
+        times, max_err, work = k1
+        lines.append(kernel_line(
+            "chain_v3", "mm2tpu_torch/csrc/chain.cu",
+            "mm2tpu/ops/chain_pallas_v3.py:48", launches, max_err,
+            times[SHAPES[-1]], work, clock))
+    if k2:
+        v2_times, v2_err, v2_work = k2
+        lines.append(kernel_line(
+            "chain_v2", "mm2tpu_torch/csrc/chain.cu",
+            "mm2tpu/ops/chain_pallas_v2.py:142", k2_launches, v2_err,
+            v2_times[(True, 1)], v2_work, clock))
+    if k3:
+        ext_times, ext_err, ext_work = k3
+        lines.append(kernel_line(
+            "ksw2_extd2", "mm2tpu_torch/csrc/ksw2_extd2.cu",
+            "mm2tpu/ops/ksw2_pallas.py:86", ext_launches, ext_err,
+            ext_times, ext_work, clock))
+    if k4:
+        s2_times, s2_err, s2_work = k4
+        lines.append(kernel_line(
+            "ksw2_exts2", "mm2tpu_torch/csrc/ksw2_exts2.cu",
+            "mm2tpu/ops/ksw2_pallas.py:847", tx[3] if tx else None, s2_err,
+            s2_times, s2_work, clock))
+    print(json.dumps({"kernels": lines}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1380,4 +1545,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

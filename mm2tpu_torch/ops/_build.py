@@ -89,6 +89,6 @@ def load() -> ctypes.CDLL:
     lib.mm2tpu_chain_v2.restype = i32
     lib.mm2tpu_ksw2_extd2.argtypes = [vp] * 9 + [i32] * 18 + [vp]
     lib.mm2tpu_ksw2_extd2.restype = i32
-    lib.mm2tpu_ksw2_exts2.argtypes = [vp] * 11 + [i32] * 15 + [vp]
+    lib.mm2tpu_ksw2_exts2.argtypes = [vp] * 12 + [i32] * 17 + [vp]
     lib.mm2tpu_ksw2_exts2.restype = i32
     return lib

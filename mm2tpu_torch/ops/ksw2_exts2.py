@@ -14,14 +14,22 @@ exactly as `_backtrack_abs(..., min_intron_len=long_thres)` does.
   `sc_N`, the sf image, the donor/acceptor rows with each fill's junc).
 - `exts2_traced_reference`: the plain PyTorch version, serial over
   anti-diagonal rows and vectorised over (fill, column), then the trace.
+- `ring_need`, `ring_plan`, `launch_plan`: the columns of the
+  shared-memory ring each fill's rows need, a launch's ring width,
+  shared memory and the fills too wide for it, and the layout of its
+  direction planes.
 - `exts2_traced`: the wrapper. A CPU tensor runs the plain version; a
   CUDA tensor launches `csrc/ksw2_exts2.cu` or raises.
 - `exts2_batch`: (q8, t8, junc) fills in, `ExtzResult`s with CIGARs out.
 
-`launches` counts kernel launches and `reference_calls` runs of the
-plain version. What the splice DP shares with extd2 (the band geometry
-with w = -1, the registers from per-row records, the trace and its host
-tail, the packing class and the transfer) comes from `ksw2_extd2`.
+`launches` counts kernel launches, `wide_fills` the fills they ran on
+state in device memory (too wide for the ring) and `reference_calls`
+runs of the plain version; `last_stamps` holds the last launch's (B, 3)
+int64 `%globaltimer` readings of each fill (start, after the last row,
+after the trace), on the card. What the splice DP shares with extd2 (the
+band geometry with w = -1, the registers from per-row records, the trace
+and its host tail, the packing class and the transfer) comes from
+`ksw2_extd2`.
 """
 from __future__ import annotations
 
@@ -35,13 +43,24 @@ from .ksw2_extd2 import (BIG, NREG, _NEXT, Packed, _cigar_from_ops,
                          _trace_reference, band_cap, run_packed,
                          set_ez_fields, R_MAXQ, R_MAXT, R_ZDROP)
 from .ksw2_extd2 import _check_inputs as _check_planes
+from ..utils import profiling
 from .ksw2_ref import (KSW_EZ_APPROX_DROP, KSW_EZ_APPROX_MAX,
                        KSW_EZ_EXTZ_ONLY, KSW_EZ_REV_CIGAR, KSW_EZ_RIGHT,
                        KSW_EZ_SPLICE_FLANK, KSW_EZ_SPLICE_FOR,
                        KSW_EZ_SPLICE_REV, KSW_NEG_INF, ExtzResult)
 
 launches = 0
+wide_fills = 0
 reference_calls = 0
+last_stamps = None
+
+# csrc/ksw2_exts2.cu: the widest ring (columns), the int32 values a ring
+# column holds (u, v, x, y, x2, H in two generations, s), the trace's
+# staged tile and the dynamic shared memory a block may have
+RING_MAX = 4096
+RING_STATES = 13
+TRACE_TILE_BYTES = (2 * 64 - 1) * 64
+SMEM_MAX = 232448 - 1024
 
 _NEXT_INTRON = _next_state_table(intron=True)
 
@@ -101,6 +120,54 @@ def site_arrays(tlen: int, tpad: int, target: np.ndarray, junc,
     return donor, acceptor
 
 
+def ring_need(qlen, tlen):
+    """Ring columns the rows of each (qlen, tlen) fill need: the largest
+    over rows r of M_r - st_r + 2, where st_r is the row's 16-aligned
+    start and M_r the largest hi = max(en, fe - 1) of rows 0..r, so that
+    the columns a row reads (from st_r - 1 on) and every column written
+    since they were last written (up to M_r) never share a slot t mod W.
+    In closed form (held against the row spans in the tests): tlen + 16
+    when tlen < qlen, else qlen + 16 + min(tlen - qlen, 15, 16 - (qlen -
+    1) % 16). At most min(qlen, tlen) + 31."""
+    q = np.asarray(qlen, np.int64)
+    t = np.asarray(tlen, np.int64)
+    return np.where(t < q, t + 16, q + 16 + np.minimum(
+        np.minimum(t - q, 15), 16 - (q - 1) % 16))
+
+
+def ring_plan(lens_h):
+    """(W, smem bytes, wide mask) of one launch over fills lens_h (B, 2)
+    = [qlen, tlen]: a fill whose `ring_need` exceeds RING_MAX runs on
+    state in device memory (wide); W is the smallest power of two (at
+    least 16) that the others need, and the block's dynamic shared memory
+    holds W columns of RING_STATES int32 values or the trace's tile,
+    whichever is larger."""
+    lens_h = np.asarray(lens_h, np.int64).reshape(-1, 2)
+    need = ring_need(lens_h[:, 0], lens_h[:, 1])
+    wide = need > RING_MAX
+    most = int(need[~wide].max()) if (~wide).any() else 16
+    W = max(16, 1 << (most - 1).bit_length())
+    return W, max(RING_STATES * 4 * W, TRACE_TILE_BYTES), wide
+
+
+def launch_plan(lens_h):
+    """Host side of one kernel launch over fills lens_h (B, 2): (meta (B,
+    3) int64 = [byte offset of the fill's direction plane, its row width
+    band_cap(qlen, tlen, -1), -1 for a ring fill else its index in the
+    device-memory state], plane bytes, Smax = the most rows, W, smem,
+    wide mask) (`ring_plan`). Each plane holds R_b rows of its width,
+    laid end to end."""
+    lens_h = np.asarray(lens_h, np.int64).reshape(-1, 2)
+    R = lens_h.sum(1) - 1
+    caps = np.array([band_cap(int(a), int(b), -1) for a, b in lens_h],
+                    np.int64)
+    d_off = np.concatenate(([0], np.cumsum(R * caps)))
+    W, smem, wide = ring_plan(lens_h)
+    slot = np.where(wide, np.cumsum(wide) - 1, -1)
+    return (np.stack([d_off[:-1], caps, slot], 1), int(d_off[-1]),
+            int(R.max()), W, smem, wide)
+
+
 def pack_splice_fills(tasks: Sequence[tuple], mat, q: int, e: int, q2: int,
                       noncan: int, junc_bonus: int, flag: int) -> Packed:
     """Host packing of `ksw2_pallas.exts2_batch` (:1158-1198) without its
@@ -146,12 +213,13 @@ def pack_splice_fills(tasks: Sequence[tuple], mat, q: int, e: int, q2: int,
 def exts2_traced_reference(lens, tsf, qcol, don, acc, *, q: int, e: int,
                            q2: int, zdrop: int, sc_mch: int, sc_mis: int,
                            sc_N: int, right: bool, approx: bool,
-                           approx_drop: bool, extz_only: bool):
+                           approx_drop: bool, extz_only: bool,
+                           lens_h=None):
     """Plain version of `exts2_traced`. lens (B, 2) int32, tsf (B, Tpad)
     uint8, qcol (B, Qpad) uint8, don and acc (B, Tpad) int32, all on one
-    device. Returns (ez (B, 16) int32, ops (B, Smax) uint8 with 255 =
-    inactive, i_fin (B,) int32, j_fin (B,) int32), Smax = max(qlen +
-    tlen - 1).
+    device; lens_h, if given, is lens on the host. Returns (ez (B, 16)
+    int32, ops (B, Smax) uint8 with 255 = inactive, i_fin (B,) int32,
+    j_fin (B,) int32), Smax = max(qlen + tlen - 1).
 
     The DP follows `_exts2_kernel` (ksw2_pallas.py:885-1077): no band
     (row r spans [max(0, r-qlen+1), min(tlen-1, r)], 16-aligned), the
@@ -173,7 +241,8 @@ def exts2_traced_reference(lens, tsf, qcol, don, acc, *, q: int, e: int,
     B, T = tsf.shape
     long_thres, long_diff = gap_constants(q, e, q2)
     qe = q + e
-    lens_h = lens.cpu().numpy().astype(np.int64)
+    lens_h = np.asarray(lens.cpu().numpy() if lens_h is None else lens_h,
+                        np.int64)
     qlen_h, tlen_h = lens_h[:, 0], lens_h[:, 1]
     R = int((qlen_h + tlen_h).max()) - 1
     cap = max(band_cap(int(a), int(b), -1) for a, b in lens_h)
@@ -373,63 +442,70 @@ def _check_inputs(lens, tsf, qcol, don, acc) -> None:
 def exts2_traced(lens, tsf, qcol, don, acc, *, q: int, e: int, q2: int,
                  zdrop: int, sc_mch: int, sc_mis: int, sc_N: int,
                  right: bool, approx: bool, approx_drop: bool,
-                 extz_only: bool):
+                 extz_only: bool, lens_h=None):
     """exts2 DP + backtrack start + trace for B fills in one call. CPU
     tensors run the plain version; CUDA tensors launch
     `csrc/ksw2_exts2.cu` on the current stream. lens (B, 2) int32, tsf
     (B, Tpad) and qcol (B, Qpad) uint8, don and acc (B, Tpad) int32,
     contiguous, with Tpad >= longest target + 16, Qpad >= longest query
-    and q2 > q + e (as `pack_splice_fills` makes them). Returns (ez (B,
-    16) int32, ops (B, Smax) uint8, i_fin (B,) int32, j_fin (B,) int32)."""
-    global launches
+    and q2 > q + e (as `pack_splice_fills` makes them). lens_h is lens on
+    the host (`Packed.lens`); without it the wrapper reads lens back,
+    which waits for the stream. Returns (ez (B, 16) int32, ops (B, Smax)
+    uint8, i_fin (B,) int32, j_fin (B,) int32)."""
+    global launches, wide_fills, last_stamps
     kw = dict(q=q, e=e, q2=q2, zdrop=zdrop, sc_mch=sc_mch, sc_mis=sc_mis,
               sc_N=sc_N, right=right, approx=approx, approx_drop=approx_drop,
               extz_only=extz_only)
     if lens.device.type not in ("cpu", "cuda"):
         raise ValueError("exts2_traced: unsupported device %s" % lens.device)
     _check_inputs(lens, tsf, qcol, don, acc)
-    lens_h = lens.cpu().numpy().astype(np.int64)
-    if (lens_h < 1).any() or \
+    lens_h = np.asarray(lens.cpu().numpy() if lens_h is None else lens_h,
+                        np.int64)
+    if lens_h.shape != tuple(lens.shape) or (lens_h < 1).any() or \
             int(lens_h[:, 1].max()) + 16 > tsf.shape[1] or \
             int(lens_h[:, 0].max()) > qcol.shape[1] or q2 <= q + e:
         raise ValueError("lens do not fit tsf (needs tlen + 16 <= %d) or "
                          "qcol (needs qlen <= %d), or q2 <= q + e"
                          % (tsf.shape[1], qcol.shape[1]))
     if lens.device.type == "cpu":
-        return exts2_traced_reference(lens, tsf, qcol, don, acc, **kw)
+        return exts2_traced_reference(lens, tsf, qcol, don, acc, **kw,
+                                      lens_h=lens_h)
     from . import _build
     lib = _build.load()
     B, Tpad = tsf.shape
-    R = lens_h[:, 0] + lens_h[:, 1] - 1
-    caps = np.array([band_cap(int(a), int(b), -1) for a, b in lens_h],
-                    np.int64)
-    # each fill's band plane: R_b rows of caps_b bytes, laid end to end
-    d_off = np.concatenate(([0], np.cumsum(R * caps)))
-    Smax = int(R.max())
+    meta, plane_bytes, Smax, W, smem, wide = launch_plan(lens_h)
+    n_wide = int(wide.sum())
     long_thres, long_diff = gap_constants(q, e, q2)
     dev = lens.device
-    meta = torch.from_numpy(np.stack([d_off[:-1], caps], 1)).to(dev)
-    # per fill: u, v, x, y, x2 in two generations, s, H
+    meta = torch.from_numpy(meta).pin_memory().to(dev, non_blocking=True)
+    # the wide fills' u, v, x, y, x2, H in two generations and s, a
+    # column's values side by side
     stride = Tpad + 16
-    state = torch.empty((B, 12, stride), dtype=torch.int32, device=dev)
-    plane = torch.empty(int(d_off[-1]), dtype=torch.uint8, device=dev)
+    state = torch.empty((n_wide, stride, RING_STATES), dtype=torch.int32,
+                        device=dev) if n_wide else None
+    plane = torch.empty(plane_bytes, dtype=torch.uint8, device=dev)
     ez = torch.empty((B, NREG), dtype=torch.int32, device=dev)
     ops = torch.empty((B, Smax), dtype=torch.uint8, device=dev)
     ij = torch.empty((B, 2), dtype=torch.int32, device=dev)
+    stamps = torch.empty((B, 3), dtype=torch.int64, device=dev)
     flags = (int(right) | int(approx) << 1 | int(approx_drop) << 2
              | int(extz_only) << 3)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.mm2tpu_ksw2_exts2(
             lens.data_ptr(), tsf.data_ptr(), qcol.data_ptr(), don.data_ptr(),
-            acc.data_ptr(), meta.data_ptr(), state.data_ptr(),
-            plane.data_ptr(), ez.data_ptr(), ops.data_ptr(), ij.data_ptr(),
-            B, Tpad, qcol.shape[1], stride, Smax, q, e, q2, long_thres,
-            long_diff, zdrop, sc_mch, sc_mis, sc_N, flags, stream)
+            acc.data_ptr(), meta.data_ptr(),
+            None if state is None else state.data_ptr(), plane.data_ptr(),
+            ez.data_ptr(), ops.data_ptr(), ij.data_ptr(), stamps.data_ptr(),
+            B, Tpad, qcol.shape[1], stride, Smax, W, smem, q, e, q2,
+            long_thres, long_diff, zdrop, sc_mch, sc_mis, sc_N, flags,
+            stream)
     if err != 0:
         raise RuntimeError("ksw2_exts2 kernel launch failed: cudaError %d"
                            % err)
     launches += 1
+    wide_fills += n_wide
+    last_stamps = stamps
     return ez, ops, ij[:, 0], ij[:, 1]
 
 
@@ -449,12 +525,25 @@ def exts2_batch(tasks: Sequence[tuple], mat, q: int, e: int, q2: int,
     if not run_idx:
         return results
     cells = sum(len(tasks[i][0]) * len(tasks[i][1]) for i in run_idx)
+    launched = launches
     ez, ops, i_f, j_f = run_packed(pk, device, lambda *planes: fn(
         *planes, q=q, e=e, q2=q2, zdrop=zdrop, sc_mch=pk.sc_mch,
         sc_mis=pk.sc_mis, sc_N=pk.sc_N, right=bool(flag & KSW_EZ_RIGHT),
         approx=bool(flag & KSW_EZ_APPROX_MAX),
         approx_drop=bool(flag & KSW_EZ_APPROX_DROP),
-        extz_only=bool(flag & KSW_EZ_EXTZ_ONLY)), cells)
+        extz_only=bool(flag & KSW_EZ_EXTZ_ONLY), lens_h=pk.lens), cells)
+    if profiling.enabled:
+        # the flush's serial rows (its longest fill's) and the fills that
+        # the kernel runs on state in device memory
+        profiling.count("ext.s2_rows", int(pk.lens.sum(1).max()) - 1)
+        profiling.count("ext.s2_wide", int(ring_plan(pk.lens)[2].sum()))
+        if launches != launched:
+            # the kernel's own time, from its first fill's start to its
+            # last fill's end: ext.gpu_busy also holds the host's work
+            # between the upload and the launch
+            st = last_stamps.cpu().numpy()
+            profiling.add("ext.s2_kernel",
+                          float(st[:, 2].max() - st[:, 0].min()) / 1e9)
 
     min_intron_len, _ = gap_constants(q, e, q2)
     rev_cigar = bool(flag & KSW_EZ_REV_CIGAR)

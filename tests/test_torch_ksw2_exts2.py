@@ -340,3 +340,388 @@ def test_kernel_matches_plain_on_card():
         for a, b in zip(kern, plain):
             for f in FIELDS:
                 assert getattr(a, f) == getattr(b, f), f
+
+
+def row_spans(qlen, tlen):
+    """(st0, en0, st, en, fe, hi) of every row of a (qlen, tlen) fill, as
+    csrc/ksw2_exts2.cu and the plain version compute them."""
+    r = np.arange(qlen + tlen - 1)
+    st0 = np.maximum(0, r - qlen + 1)
+    en0 = np.minimum(tlen - 1, r)
+    st = st0 // 16 * 16
+    en = (en0 + 16) // 16 * 16 - 1
+    fe = st0 + (en0 - st0) // 16 * 16 + 16
+    return st0, en0, st, en, fe, np.maximum(en, fe - 1)
+
+
+def ring_check(qlen, tlen, W):
+    """Replay the ring accesses of csrc/ksw2_exts2.cu for one fill on a
+    ring of W slots (column t at t mod W) and return the first fault, or
+    None. Arrays: u/v/x/y/x2 and the H row of the exact max in two
+    generations (row r reads generation r mod 2, written by row r-1, and
+    writes the other; the control warp reads row r-1's H at its en0 and
+    st0 during row r) and the score row s. For every row r:
+      - a column read from the ring holds that column's last write: its
+        slot's last writer is the same column (for u..x2 and H, row r-1);
+      - the columns read in row r and the columns written to the same
+        array in rows r-1 and r never share a slot unless they are the
+        same column;
+      - a column read by rule (u..x2 above the previous row's en, s above
+        the largest column any row refreshed) was written by no earlier
+        row, so device memory would still hold the initial value the
+        kernel takes instead; H is never read by rule."""
+    st0, en0, st, en, fe, hi = row_spans(qlen, tlen)
+    ever = {"uv": set(), "s": set(), "H": set()}
+    last = {}          # (array, generation, slot) -> (column, row)
+    prev_st = prev_en = sfront = -1
+    wrote_prev = {}
+    for r in range(qlen + tlen - 1):
+        g_old, g_new = r % 2, (r + 1) % 2
+        cols = list(range(st[r], en[r] + 1))
+        reads, rule = [], []
+        covered = st[r] > 0 and prev_st <= st[r] - 1 <= prev_en
+        tm1 = ([st[r] - 1] if covered else []) + [t - 1 for t in cols[1:]]
+        for c in cols + tm1:
+            (rule if c > prev_en else reads).append(("uv", g_old, c))
+        stale = [c for c in cols if not st0[r] <= c < fe[r]]
+        for c in stale:
+            (rule if c > sfront else reads).append(("s", 0, c))
+        if r > 0:
+            # the cells of [st0, en0), the seed (H at en0-1, or at 0 when
+            # en0 is 0) and the control warp (row r-1's en0 and st0)
+            hcols = list(range(st0[r], en0[r])) + [max(en0[r] - 1, 0)] + \
+                [en0[r - 1], st0[r - 1]]
+            reads += [("H", g_old, c) for c in hcols]
+        writes = [("uv", g_new, c) for c in cols] + \
+            [("s", 0, c) for c in range(st0[r], fe[r])] + \
+            [("H", g_new, c) for c in range(st0[r], en0[r] + 1)]
+        for a, g, c in rule:
+            if c in ever[a]:
+                return "row %d: %s column %d read by rule, but written" % (
+                    r, a, c)
+        for a, g, c in reads:
+            if c not in ever[a]:
+                return "row %d: %s column %d read, never written" % (r, a, c)
+            col, row = last[(a, g, c % W)]
+            if col != c or (a != "s" and row != r - 1):
+                return "row %d: %s column %d finds column %d of row %d" % (
+                    r, a, c, col, row)
+        slots = {}
+        for a, g, c in writes + list(wrote_prev.get(r - 1, [])):
+            slots.setdefault((a, g, c % W), set()).add(c)
+        for a, g, c in reads:
+            if slots.get((a, g, c % W), {c}) != {c}:
+                return "row %d: %s column %d shares a slot with %s" % (
+                    r, a, c, sorted(slots[(a, g, c % W)]))
+        for a, g, c in writes:
+            ever[a].add(c)
+            last[(a, g, c % W)] = (c, r)
+        wrote_prev = {r: writes}
+        prev_st, prev_en = st[r], en[r]
+        sfront = max(sfront, fe[r] - 1)
+    return None
+
+
+def test_ring_need_matches_the_row_spans():
+    """`ring_need`'s closed form equals max over rows of (the largest hi so
+    far - st + 2), from the row spans, on every (qlen, tlen) up to 80,
+    around multiples of 16 and at random lengths up to 9000."""
+    rng = np.random.default_rng(86)
+    pairs = [(q, t) for q in range(1, 81) for t in range(1, 81)]
+    pairs += [(q + d, t + d2) for q in (256, 1024, 4064, 4080)
+              for t in (256, 1024, 4080) for d in (-1, 0, 1, 15, 16, 17)
+              for d2 in (-1, 0, 1)]
+    pairs += [tuple(int(x) for x in rng.integers(1, 9000, 2))
+              for _ in range(300)]
+    q, t = np.array(pairs).T
+    got = S.ring_need(q, t)
+    for (qq, tt), n in zip(pairs, got):
+        st0, en0, st, en, fe, hi = row_spans(qq, tt)
+        assert n == (np.maximum.accumulate(hi) - st + 2).max(), (qq, tt)
+        assert n <= min(qq, tt) + 31
+        assert n <= X.band_cap(qq, tt, -1) + 16
+
+
+# (qlen, tlen) fills for the ring replay: one-base sequences, qlen > tlen,
+# ends at multiples of 16 +- 1, and long targets that wrap small rings
+RING_FILLS = {
+    "ones": [(1, 1), (1, 2), (2, 1), (1, 40), (40, 1)],
+    "sixteens": [(15, 15), (16, 16), (17, 17), (16, 17), (17, 16),
+                 (31, 33), (33, 31), (47, 48), (48, 49), (49, 47)],
+    "query_longer": [(60, 20), (100, 33), (130, 64), (70, 17)],
+    "introns": [(40, 700), (16, 500), (33, 900), (65, 400)],
+    "at_the_limit": [(16, 16), (48, 48), (60, 48), (112, 112), (200, 112)],
+}
+
+
+@pytest.mark.parametrize("name", list(RING_FILLS))
+def test_ring_rule_property(name):
+    """Each fill's own ring (the narrowest `ring_plan` gives it) and a
+    ring of exactly `ring_need` slots are sound; two slots fewer are not
+    once a fill has two rows (`ring_need` keeps one slot to spare): the
+    replay has teeth. Also seeded random fills."""
+    fills = list(RING_FILLS[name])
+    rng = np.random.default_rng(sorted(RING_FILLS).index(name))
+    fills += [(int(a), int(b)) for a, b in zip(rng.integers(1, 90, 3),
+                                               rng.integers(1, 400, 3))]
+    for qlen, tlen in fills:
+        W, smem, wide = S.ring_plan(np.array([[qlen, tlen]]))
+        need = int(S.ring_need(qlen, tlen))
+        assert not wide[0] and W >= need and W & (W - 1) == 0
+        assert W == 16 or W // 2 < need
+        assert smem == max(S.RING_STATES * 4 * W, S.TRACE_TILE_BYTES)
+        assert ring_check(qlen, tlen, W) is None, (qlen, tlen, W)
+        if name == "at_the_limit" and (qlen, tlen) in RING_FILLS[name]:
+            assert need in (32, 64, 128) and W == need
+        assert ring_check(qlen, tlen, need) is None, (qlen, tlen, need)
+        if qlen + tlen > 2:
+            assert ring_check(qlen, tlen, need - 2) is not None, \
+                (qlen, tlen)
+
+
+def test_ring_plan_wide_mask():
+    """`wide_mask` is set exactly for the fills whose `ring_need` exceeds
+    the widest ring (4096 columns, 208 KB of the 227 KB a block may
+    have); W serves the others, and a launch of wide fills only still
+    has room for the trace's tile."""
+    lens = np.array([[4080, 4080], [4081, 4081], [5000, 4080], [5000, 4081],
+                     [4065, 4200], [300, 9000], [9000, 9000]])
+    need = S.ring_need(lens[:, 0], lens[:, 1])
+    assert need.tolist() == [4096, 4097, 4096, 4097, 4096, 321, 9016]
+    for (qq, tt), n in zip(lens.tolist(), need):
+        st0, en0, st, en, fe, hi = row_spans(qq, tt)
+        assert n == (np.maximum.accumulate(hi) - st + 2).max()
+    W, smem, wide = S.ring_plan(lens)
+    assert wide.tolist() == [False, True, False, True, False, False, True]
+    assert W == S.RING_MAX and smem == 13 * 4 * 4096 <= S.SMEM_MAX
+    W, smem, wide = S.ring_plan(lens[[1, 3, 6]])
+    assert wide.all() and W == 16 and smem == S.TRACE_TILE_BYTES
+    W, smem, wide = S.ring_plan(lens[[5]])
+    assert W == 512 and not wide.any()
+
+
+def test_exts2_batch_counts_s2_rows_and_passes_host_lens():
+    """Under --profile each exts2 flush adds its longest fill's rows to
+    ext.s2_rows, its wide fills to ext.s2_wide and, when the kernel
+    launched, the span of its stamps to ext.s2_kernel; exts2_batch hands
+    the wrapper the host lengths (no read-back of the uploaded lens)."""
+    from mm2tpu_torch.utils import profiling
+    rng = np.random.default_rng(87)
+    small = [(q8, t8, None) for q8, t8 in splice_tasks(rng, n_tasks=3)]
+    wide = [(rng.integers(0, 4, 4200).astype(np.uint8),
+             rng.integers(0, 4, 4300).astype(np.uint8), None)]
+    seen = []
+
+    def fake(lens, tsf, qcol, don, acc, *, lens_h, **kw):
+        """A launch as the wrapper records it: fill b runs from b to 10 +
+        2 b ns."""
+        assert np.array_equal(lens_h, lens.numpy())
+        seen.append(lens_h)
+        B, smax = len(lens_h), int(lens_h.sum(1).max()) - 1
+        S.launches += 1
+        b = torch.arange(B, dtype=torch.int64)
+        S.last_stamps = torch.stack([b, b + 5, 10 + 2 * b], 1)
+        return (torch.zeros((B, X.NREG), dtype=torch.int32),
+                torch.full((B, smax), 255, dtype=torch.uint8),
+                torch.full((B,), -1, dtype=torch.int32),
+                torch.full((B,), -1, dtype=torch.int32))
+
+    profiling.enable()
+    try:
+        for tasks in (small, small[:1] + wide, small[1:]):
+            S.exts2_batch(tasks, MAT, 4, 2, 32, 9, 200, 9, FOR | EXT,
+                          device="cpu", fn=fake)
+        rows = profiling.counters["ext.s2_rows"]
+        n_wide = profiling.counters["ext.s2_wide"]
+        kernel_s = profiling.snapshot()["ext.s2_kernel"]
+    finally:
+        profiling.disable()
+        S.launches -= len(seen)
+    assert len(seen) == 3
+    assert rows == sum(int(lh.sum(1).max()) - 1 for lh in seen)
+    assert rows == sum(max(len(q) + len(t) - 1 for q, t, _ in tasks)
+                       for tasks in (small, small[:1] + wide, small[1:]))
+    assert n_wide == 1
+    assert kernel_s[1] == 3
+    assert abs(kernel_s[0] - sum(10 + 2 * (len(lh) - 1) for lh in seen)
+               / 1e9) < 1e-15
+    # the CPU route takes the host lengths too, and checks them
+    planes, kw = planes_for(small)
+    out = S.exts2_traced(*planes, **kw, lens_h=planes[0].numpy())
+    ref = S.exts2_traced_reference(*planes, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))
+    with pytest.raises(ValueError):
+        S.exts2_traced(*planes, **kw, lens_h=planes[0].numpy()[:1])
+
+
+# A CPU stand-in for the CUDA that csrc/ksw2_exts2.cu uses, so that g++
+# can build the kernel's own source here: one std::thread per CUDA
+# thread, blocks in series, std::barrier for __syncthreads and for the
+# two halves of a warp reduction, a static array for the dynamic shared
+# memory.
+CUDA_SHIM = r"""
+#pragma once
+#include <algorithm>
+#include <barrier>
+#include <chrono>
+#include <cstddef>
+#include <cstdint>
+#include <functional>
+#include <thread>
+#include <vector>
+using std::max;
+using std::min;
+#define __global__
+#define __device__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __align__(x) alignas(x)
+#define __shared__ static
+struct dim3_ { int x = 0; };
+inline thread_local dim3_ threadIdx, blockIdx;
+struct alignas(8) int2 { int x, y; };
+inline int2 make_int2(int a, int b) { return int2{a, b}; }
+template <class T> inline T __ldg(const T* p) { return *p; }
+typedef int cudaError_t;
+typedef void* cudaStream_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+template <class F> inline cudaError_t cudaFuncSetAttribute(F, int, int) {
+  return cudaSuccess;
+}
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline std::barrier<>* g_bar;
+inline std::barrier<>* g_warp_bar[32];
+inline int g_warp_buf[32][32];
+inline void __syncthreads() { g_bar->arrive_and_wait(); }
+inline int __reduce_max_sync(unsigned, int v) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  g_warp_buf[w][lane] = v;
+  g_warp_bar[w]->arrive_and_wait();
+  int m = v;
+  for (int k = 0; k < 32; ++k) m = std::max(m, g_warp_buf[w][k]);
+  g_warp_bar[w]->arrive_and_wait();
+  return m;
+}
+inline unsigned long long shim_timer() {
+  return std::chrono::duration_cast<std::chrono::nanoseconds>(
+      std::chrono::steady_clock::now().time_since_epoch()).count();
+}
+inline void shim_launch(int nb, int nt, std::function<void()> f) {
+  for (int b = 0; b < nb; ++b) {
+    std::barrier<> bar(nt);
+    g_bar = &bar;
+    for (int w = 0; w < nt / 32; ++w) g_warp_bar[w] = new std::barrier<>(32);
+    std::vector<std::thread> th;
+    for (int t = 0; t < nt; ++t)
+      th.emplace_back([&, t, b]() { threadIdx.x = t; blockIdx.x = b; f(); });
+    for (auto& x : th) x.join();
+    for (int w = 0; w < nt / 32; ++w) delete g_warp_bar[w];
+  }
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def kernel_on_cpu(tmp_path_factory):
+    """csrc/ksw2_exts2.cu built with g++ against CUDA_SHIM, with its C
+    entry point bound by ctypes exactly as ops/_build.py binds it."""
+    import ctypes
+    import re
+    import subprocess
+    from pathlib import Path
+    d = tmp_path_factory.mktemp("exts2_shim")
+    src = (Path(S.__file__).resolve().parent.parent / "csrc" /
+           "ksw2_exts2.cu").read_text()
+    for old, new in (
+            ("#include <cuda_runtime.h>", '#include "cuda_shim.h"'),
+            ("extern __shared__ __align__(16) unsigned char dsmem[];",
+             "alignas(16) static unsigned char dsmem[232448];"),
+            ('asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));',
+             "t = shim_timer();")):
+        assert src.count(old) == 1, old
+        src = src.replace(old, new)
+    src, n = re.subn(r"exts2_kernel<<<B, THREADS, smem, stream>>>\(",
+                     "shim_launch(B, THREADS, [&]() { exts2_kernel(", src)
+    assert n == 1
+    src = src.replace("Tpad, Qpad, stride, Smax, W, p);\n  return",
+                      "Tpad, Qpad, stride, Smax, W, p); });\n  return")
+    (d / "cuda_shim.h").write_text(CUDA_SHIM)
+    (d / "k.cpp").write_text(src)
+    so = d / "libexts2_shim.so"
+    # 96 threads: the control warp and two compute warps, so a row wider
+    # than 64 columns takes the kernel's loop over a thread's columns
+    subprocess.run(["g++", "-std=c++20", "-O1", "-fno-strict-aliasing",
+                    "-DEXTS2_THREADS=96", "-shared", "-fPIC", "-pthread",
+                    "-o", str(so), str(d / "k.cpp")], check=True, cwd=d)
+    lib = ctypes.CDLL(str(so))
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.mm2tpu_ksw2_exts2.argtypes = [vp] * 12 + [i32] * 17 + [vp]
+    lib.mm2tpu_ksw2_exts2.restype = i32
+    return lib
+
+
+def shim_traced(lib, lens, tsf, qcol, don, acc, *, q, e, q2, zdrop, sc_mch,
+                sc_mis, sc_N, right, approx, approx_drop, extz_only,
+                wide_too=()):
+    """`exts2_traced`'s launch with CPU buffers: `launch_plan`'s layout;
+    the fills in `wide_too` run on state in device memory even though
+    they fit the ring."""
+    lens_h = lens.numpy().astype(np.int64)
+    meta, plane_bytes, Smax, W, smem, wide = S.launch_plan(lens_h)
+    wide = wide.copy()
+    wide[list(wide_too)] = True
+    meta[:, 2] = np.where(wide, np.cumsum(wide) - 1, -1)
+    B, Tpad = tsf.shape
+    stride = Tpad + 16
+    # scratch starts as garbage: the kernel must initialise nothing
+    state = np.full((max(int(wide.sum()), 1), stride, S.RING_STATES),
+                    0x5A5A5A5A, np.int32)
+    plane = np.full(plane_bytes, 0xEE, np.uint8)
+    ez = np.zeros((B, X.NREG), np.int32)
+    ops = np.zeros((B, Smax), np.uint8)
+    ij = np.zeros((B, 2), np.int32)
+    stamps = np.zeros((B, 3), np.int64)
+    meta = np.ascontiguousarray(meta, np.int64)
+    lt, ld = S.gap_constants(q, e, q2)
+    flags = int(right) | int(approx) << 1 | int(approx_drop) << 2 | \
+        int(extz_only) << 3
+    ptr = [t.data_ptr() for t in (lens, tsf, qcol, don, acc)] + \
+        [a.ctypes.data for a in (meta, state, plane, ez, ops, ij, stamps)]
+    err = lib.mm2tpu_ksw2_exts2(*ptr, B, Tpad, qcol.shape[1], stride, Smax,
+                                W, smem, q, e, q2, lt, ld, zdrop, sc_mch,
+                                sc_mis, sc_N, flags, None)
+    assert err == 0
+    assert (stamps[:, 0] <= stamps[:, 1]).all() and \
+        (stamps[:, 1] <= stamps[:, 2]).all()
+    return [torch.from_numpy(a) for a in (ez, ops, ij[:, 0].copy(),
+                                          ij[:, 1].copy())]
+
+
+# (case of CASES, fills forced onto state in device memory)
+SHIM_CASES = [("splice_for0", ()), ("left_ext", (1,)), ("zdrop", (0, 2)),
+              ("zdrop_approx", ()), ("approx_drop_junc", (0, 1, 2)),
+              ("splice_hq_gap_fill", (1, 3))]
+
+
+@pytest.mark.parametrize("name,wide_too", SHIM_CASES)
+def test_kernel_source_on_cpu_matches_plain(kernel_on_cpu, name, wide_too):
+    """The CUDA source of K4 itself, built with g++ against a CPU
+    stand-in of CUDA, equals the plain version (every ez register, op
+    code and the final (i, j)), with its state in the shared-memory ring,
+    in device memory, and both in one launch. Integer DP: tolerance 0."""
+    make, seed, (mat, q, e, q2, noncan, zdrop, bonus), flag, junc = \
+        CASES[name]
+    pairs = make(np.random.default_rng(seed))
+    tasks = with_juncs(pairs) if junc else [(q8, t8, None)
+                                            for q8, t8 in pairs]
+    pk = S.pack_splice_fills(tasks, mat, q, e, q2, noncan, bonus, flag)
+    planes = [torch.from_numpy(a) for a in pk.planes()]
+    kw = dict(q=q, e=e, q2=q2, zdrop=zdrop, sc_mch=pk.sc_mch,
+              sc_mis=pk.sc_mis, sc_N=pk.sc_N, right=bool(flag & RIGHT),
+              approx=bool(flag & APPROX), approx_drop=bool(flag & DROP),
+              extz_only=bool(flag & EXT))
+    got = shim_traced(kernel_on_cpu, *planes, **kw, wide_too=wide_too)
+    want = S.exts2_traced_reference(*planes, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b.to(a.dtype))
