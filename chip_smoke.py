@@ -7,8 +7,9 @@ Run from the root of a checkout, with no arguments, for the full gate:
 
     python3 chip_smoke.py
 
-or with `--phases LIST` (for example `--phases 1,3b` to build and try
-the splice kernel, `--phases 1,3b,9` to add the spliced-read path) to run
+or with `--phases LIST` (for example `--phases 1,3` to build and try
+the extd2 kernel, `--phases 1,3,5,6` to add the map-ont SAM path,
+`--phases 1,3b,9` for the splice kernel and the spliced-read path) to run
 phase 0, the named phases and phase 11's import check only; the kernel
 JSON line then lists only the kernels whose phase ran (launches null
 where their path's phase did not run). Phase 6 needs 5, 7 needs 5 and 6,
@@ -30,8 +31,13 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      against its plain version on the card: seeded fills of 300-1000 and
      2000-5000 bases (10% substitutions, 5% indels), B = 8 and 64,
      map-ont scoring, w = 500 (and w = -1 at the small size), five flag
-     sets; every ez register, op code and CIGAR equal, both timed at the
-     largest shape
+     sets, and one launch of 3 fills too wide for the kernel's
+     shared-memory ring (2300-2600 bases at w = -1; they run on state in
+     device memory, which ksw2_extd2.wide_fills must count) beside 2 that
+     fit it; every ez register, op code and CIGAR equal; both timed at
+     the largest shape at w = 500 and at map-ont's extension band w =
+     751, where the kernel's own %globaltimer stamps give its DP time a
+     row and its trace time a step
  3b. the exts2 splice kernel K4 (splice DP, backtrack start and trace)
      against its plain version on the card: seeded two-exon fills across
      a GT-AG intron under the splice preset's scoring, B = 8 (introns of
@@ -54,19 +60,22 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      cuda` on a seeded 48 Mb genome with 1000 ONT-like reads; >= 95% of
      the reads must map, and only K1 may have chained
   6. the map-ont SAM path: the same reads with `-a --align-backend gpu
-     --align-tpu-min-mat 1`, every extension fill on K3, then with
-     `--align-backend host` (the native extension): the SAMs must be
-     byte-identical without @PG, and only the kernels may have run
+     --align-tpu-min-mat 1`, every extension fill on K3 (the flushes'
+     serial rows ext.d2_rows, the wide fills ext.d2_wide, K3's card time
+     a row, ext.gpu_busy / ext.d2_rows, and its own time from its
+     stamps, ext.d2_kernel), then with `--align-backend host` (the
+     native extension): the SAMs must be byte-identical without @PG, and
+     only the kernels may have run
   7. the first 60 reads of at most 8 kb mapped again through the PAF
      path with the plain chaining on CUDA tensors, and the first 20 of
      them through the SAM path with the plain extd2 on CUDA tensors:
      their PAF and SAM lines must be byte-identical to the kernels'
   8. the -x sr paired path on the same genome: 10,000 seeded read pairs
      of 2 x 150 bp to PAF, and the first 2000 of them to SAM with `-a
-     --align-backend gpu --align-tpu-min-mat 1` and to SAM with
-     `--align-backend host`; the SAMs byte-identical without @PG, >= 90%
-     of the pairs mapped, only K2 (and K3) launched and no plain version
-     run
+     --align-backend gpu --align-tpu-min-mat 1` (K3's counters as in
+     phase 6) and to SAM with `--align-backend host`; the SAMs
+     byte-identical without @PG, >= 90% of the pairs mapped, only K2 (and
+     K3) launched and no plain version run
   9. the -x splice path: 1000 seeded spliced reads to PAF (only K2
      launched), to SAM with `-a --align-backend gpu --align-tpu-min-mat 1`
      (every splice fill on K4: only K2 and K4 launched, no fill left on
@@ -135,6 +144,13 @@ CONFIGS = {
 # last shape is the one the kernel line of the JSON reports.
 EXT_SHAPES = [(8, 300, 1000, (500, -1)), (64, 300, 1000, (500, -1)),
               (64, 2000, 5000, (500,))]
+# the bands K3 is timed at on the last shape: the kernel line's, and
+# map-ont's extension band, int(1.5 * 500 + 1)
+EXT_TIMED_BANDS = (500, 751)
+# K3's fills too wide for its shared-memory ring (ring_need > RING_MAX =
+# 2048 columns at w = -1), launched beside fills that fit it: (number,
+# shortest, longest target) of each part, all global fills
+EXTD2_WIDE = [(3, 2300, 2600), (2, 300, 1000)]
 # map-ont scoring: match 2, mismatch 4, N -1; gaps (4, 2) and (24, 1)
 EXT_GAPS = dict(q=4, e=2, q2=24, e2=1)
 EXT_ZDROP = 400
@@ -518,43 +534,56 @@ def ext_matrix():
     return mat
 
 
+def kernel_and_plain(batch, args, kernel_fn, plain_fn):
+    """`batch(*args, fn=...)` on the card through a kernel's wrapper, then
+    through its plain version. Returns (the kernel's results, max abs
+    error over the raw outputs (ez, op codes, i, j), whether those are
+    equal, the (fill, field) pairs of the results that differ, kernel
+    s, plain s)."""
+    raw, secs = {}, {}
+
+    def run(tag, fn):
+        def call(*a, **kw):
+            raw[tag] = fn(*a, **kw)
+            return raw[tag]
+        t0 = time.perf_counter()
+        out = batch(*args, device=DEVICE, fn=call)
+        torch.cuda.synchronize()
+        secs[tag] = time.perf_counter() - t0
+        return out
+
+    kern, plain = run("kernel", kernel_fn), run("plain", plain_fn)
+    err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+              for a, b in zip(raw["kernel"], raw["plain"]))
+    same = all(torch.equal(a, b) for a, b in zip(raw["kernel"], raw["plain"]))
+    bad = [(i, f) for i, (k, p) in enumerate(zip(kern, plain))
+           for f in EZ_FIELDS if getattr(k, f) != getattr(p, f)]
+    return kern, err, same, bad, secs["kernel"], secs["plain"]
+
+
 def phase_ext_kernel_vs_plain():
-    """Returns (kernel ms, plain ms) at the last of EXT_SHAPES (flag 0,
-    w = 500), the max abs error over every ez register, op code and
-    final (i, j) compared, and the timed call's work: (bytes, int32
-    instructions) for the fills' bases in, ez, op codes and (i, j) out,
-    and the band's cells (min(2w + 1, qlen) x tlen a fill)."""
+    """K3 against its plain version on the card, on every shape, band
+    and flag set of EXT_SHAPES and EXT_FLAGS, on the timed calls at
+    EXT_TIMED_BANDS and on the wide launch (`phase_ext_wide`). Returns
+    (kernel ms, plain ms) at the last of EXT_SHAPES (flag 0, w = 500),
+    the max abs error over every ez register, op code and final (i, j)
+    compared, and the timed call's work: (bytes, int32 instructions) for
+    the fills' bases in, ez, op codes and (i, j) out, and the band's
+    cells (min(2w + 1, qlen) x tlen a fill)."""
     from mm2tpu_torch.ops import ksw2_extd2 as X
     mat = ext_matrix()
-    max_err, timed = 0, None
+    max_err, timed, work = 0, None, None
     for si, (B, lo, hi, bands) in enumerate(EXT_SHAPES):
         tasks = synth_fills(B, lo, hi, seed=200 + si)
         for w in bands:
             for name, flag in EXT_FLAGS.items():
                 end_bonus = 10 if flag & KSW_EZ_EXTZ_ONLY else -1
-                raw = {}
-
-                def keep(tag, fn):
-                    def run(*a, **kw):
-                        raw[tag] = fn(*a, **kw)
-                        return raw[tag]
-                    return run
-
                 args = (tasks, mat, *EXT_GAPS.values(), w, EXT_ZDROP,
                         end_bonus, flag)
-                kern = X.extd2_batch(*args, device=DEVICE,
-                                     fn=keep("kernel", X.extd2_traced))
-                plain = X.extd2_batch(
-                    *args, device=DEVICE,
-                    fn=keep("plain", X.extd2_traced_reference))
-                err = max(int((a.to(torch.int64) - b.to(torch.int64))
-                              .abs().max())
-                          for a, b in zip(raw["kernel"], raw["plain"]))
+                kern, err, same, bad, _, _ = kernel_and_plain(
+                    X.extd2_batch, args, X.extd2_traced,
+                    X.extd2_traced_reference)
                 max_err = max(max_err, err)
-                same = all(torch.equal(a, b)
-                           for a, b in zip(raw["kernel"], raw["plain"]))
-                bad = [(i, f) for i, (k, p) in enumerate(zip(kern, plain))
-                       for f in EZ_FIELDS if getattr(k, f) != getattr(p, f)]
                 if not same or bad:
                     raise AssertionError(
                         "extd2 kernel != plain at B=%d, %d-%d bp, w=%d, "
@@ -568,26 +597,80 @@ def phase_ext_kernel_vs_plain():
             pk = X.pack_fills(tasks, mat, **EXT_GAPS)
             planes = [torch.from_numpy(a).to(DEVICE)
                       for a in (pk.lens, pk.tsf, pk.qcol)]
-            kw = dict(**EXT_GAPS, zdrop=EXT_ZDROP, sc_mch=pk.sc_mch,
-                      sc_mis=pk.sc_mis, sc_N=pk.sc_N, w=bands[0],
-                      right=False, approx=False, approx_drop=False,
-                      extz_only=False, end_bonus=-1)
-            ms, _ = cuda_ms(functools.partial(X.extd2_traced, *planes, **kw),
-                            3)
             qlens = [len(q8) for q8, _ in tasks]
             tlens = [len(t8) for _, t8 in tasks]
             smax = int(pk.lens.sum(1).max()) - 1
-            work = (sum(qlens) + sum(tlens) + B * (4 * X.NREG + smax + 8),
-                    OPS_PER_CELL * sum(min(2 * bands[0] + 1, q) * t
-                                       for q, t in zip(qlens, tlens)))
-            plain_ms, _ = cuda_ms(functools.partial(
-                X.extd2_traced_reference, *planes, **kw), 1, warmup=False)
-            timed = (ms, plain_ms)
-            say(3, "time at B=%d, %d-%d bp, w=%d, flag 0 (%d rows at most): "
-                "kernel %.3f ms, plain %.3f ms" % (
-                    B, lo, hi, bands[0], int(pk.lens.sum(1).max()) - 1, ms,
-                    plain_ms))
-    return timed, max_err, work
+            for w in EXT_TIMED_BANDS:
+                kw = dict(**EXT_GAPS, zdrop=EXT_ZDROP, sc_mch=pk.sc_mch,
+                          sc_mis=pk.sc_mis, sc_N=pk.sc_N, w=w, right=False,
+                          approx=False, approx_drop=False, extz_only=False,
+                          end_bonus=-1)
+                ms, out = cuda_ms(functools.partial(
+                    X.extd2_traced, *planes, **kw, lens_h=pk.lens), 3)
+                stamps = X.last_stamps.cpu().numpy()
+                plain_ms, ref = cuda_ms(functools.partial(
+                    X.extd2_traced_reference, *planes, **kw), 1,
+                    warmup=False)
+                err = max(int((a.to(torch.int64) - b.to(torch.int64))
+                              .abs().max()) for a, b in zip(out, ref))
+                if err:
+                    raise AssertionError("extd2 kernel != plain in the "
+                                         "timed call at w=%d: max abs err "
+                                         "%d" % (w, err))
+                max_err = max(max_err, err)
+                if w == EXT_TIMED_BANDS[0]:
+                    timed = (ms, plain_ms)
+                    work = (sum(qlens) + sum(tlens)
+                            + B * (4 * X.NREG + smax + 8),
+                            OPS_PER_CELL * sum(min(2 * w + 1, q) * t
+                                               for q, t in zip(qlens,
+                                                               tlens)))
+                W, smem, _ = X.ring_plan(pk.lens, w)
+                say(3, "time at B=%d, %d-%d bp, w=%d, flag 0 (%d rows at "
+                    "most, a ring of W = %d): kernel %.3f ms, plain %.3f "
+                    "ms; kernel == plain" % (B, lo, hi, w, smax, W, ms,
+                                             plain_ms))
+                say(3, stamp_split(pk.lens, out, stamps))
+    return timed, max(max_err, phase_ext_wide(mat)), work
+
+
+def phase_ext_wide(mat):
+    """K3 against its plain version on one launch of EXTD2_WIDE's fills
+    at w = -1 under flag 0: the wide part's fills exceed the
+    shared-memory ring and must run on state in device memory
+    (ksw2_extd2.wide_fills counts them), the rest on the ring; every ez
+    register, op code, (i, j) and CIGAR equal. Returns the max abs
+    error."""
+    from mm2tpu_torch.ops import ksw2_extd2 as X
+    rng = np.random.default_rng(203)
+    tasks = []
+    for n, lo, hi in EXTD2_WIDE:
+        for _ in range(n):
+            t8 = rng.integers(0, 4, int(rng.integers(lo, hi + 1))).astype(
+                np.uint8)
+            tasks.append((mutate(t8, rng), t8))
+    nw = EXTD2_WIDE[0][0]
+    lens = np.array([(len(q8), len(t8)) for q8, t8 in tasks])
+    W, smem, wide = X.ring_plan(lens, -1)
+    if list(wide) != [True] * nw + [False] * (len(tasks) - nw):
+        raise AssertionError("EXTD2_WIDE: ring_plan's wide mask %s for "
+                             "lengths %s" % (wide, lens.tolist()))
+    args = (tasks, mat, *EXT_GAPS.values(), -1, EXT_ZDROP, -1, 0)
+    before = X.wide_fills
+    kern, err, same, bad, k_s, p_s = kernel_and_plain(
+        X.extd2_batch, args, X.extd2_traced, X.extd2_traced_reference)
+    counted = X.wide_fills - before
+    if not same or bad or counted != nw:
+        raise AssertionError("extd2 wide launch: kernel == plain %s, fields "
+                             "%s, wide_fills counted %d of %d"
+                             % (same, bad[:5], counted, nw))
+    say(3, "K3 == plain on one launch of %d wide fills (lengths %s, on "
+        "state in device memory, wide_fills +%d) and %d that fit a ring "
+        "of W = %d (%d B of shared memory), w = -1: %d CIGARs; %.3f s with "
+        "the kernel, %.3f s with the plain version" % (
+            nw, lens[:nw].tolist(), counted, len(tasks) - nw, W, smem,
+            sum(bool(r.cigar) for r in kern), k_s, p_s))
+    return err
 
 
 def splice_matrix():
@@ -650,28 +733,11 @@ def phase_exts2_kernel_vs_plain():
                 continue
             tasks = [(q8, t8, junc if with_junc else None)
                      for q8, t8, junc in fills]
-            raw = {}
-
-            def keep(tag, fn):
-                def run(*a, **kw):
-                    raw[tag] = fn(*a, **kw)
-                    return raw[tag]
-                return run
-
             args = (tasks, mat, *SPLICE_GAPS.values(), SPLICE_ZDROP,
                     SPLICE_JUNC_BONUS, flag)
-            kern = S.exts2_batch(*args, device=DEVICE,
-                                 fn=keep("kernel", S.exts2_traced))
-            plain = S.exts2_batch(*args, device=DEVICE,
-                                  fn=keep("plain", S.exts2_traced_reference))
-            err = max(int((a.to(torch.int64) - b.to(torch.int64))
-                          .abs().max())
-                      for a, b in zip(raw["kernel"], raw["plain"]))
+            kern, err, same, bad, _, _ = kernel_and_plain(
+                S.exts2_batch, args, S.exts2_traced, S.exts2_traced_reference)
             max_err = max(max_err, err)
-            same = all(torch.equal(a, b)
-                       for a, b in zip(raw["kernel"], raw["plain"]))
-            bad = [(i, f) for i, (k, p) in enumerate(zip(kern, plain))
-                   for f in EZ_FIELDS if getattr(k, f) != getattr(p, f)]
             if not same or bad:
                 raise AssertionError(
                     "exts2 kernel != plain at B=%d, introns %d-%d bp, flag "
@@ -711,10 +777,11 @@ def phase_exts2_kernel_vs_plain():
 
 
 def stamp_split(lens, out, stamps):
-    """K4's DP time a row and trace time a step, from its %globaltimer
-    stamps (start, after the last row, after the trace) of each fill of
-    one launch: the DP over the fills that ran every row (not
-    z-dropped), the trace over every fill's steps (op codes != 255)."""
+    """A ksw2 kernel's (K3's or K4's) DP time a row and trace time a
+    step, from its %globaltimer stamps (start, after the last row, after
+    the trace) of each fill of one launch: the DP over the fills that ran
+    every row (not z-dropped), the trace over every fill's steps (op
+    codes != 255)."""
     ez, ops = (t.cpu().numpy() for t in out[:2])
     rows = lens.astype(np.int64).sum(1) - 1
     full = ez[:, 0] == 0
@@ -748,32 +815,12 @@ def phase_exts2_wide(mat):
     if list(wide) != [True] * nw + [False] * nn:
         raise AssertionError("EXTS2_WIDE: ring_plan's wide mask %s for "
                              "lengths %s" % (wide, lens.tolist()))
-    raw = {}
-
-    def keep(tag, fn):
-        def run(*a, **kw):
-            raw[tag] = fn(*a, **kw)
-            return raw[tag]
-        return run
-
     args = (fills, mat, *SPLICE_GAPS.values(), SPLICE_ZDROP,
             SPLICE_JUNC_BONUS, flag)
     before = S.wide_fills
-    t0 = time.perf_counter()
-    kern = S.exts2_batch(*args, device=DEVICE,
-                         fn=keep("kernel", S.exts2_traced))
-    torch.cuda.synchronize()
-    k_s = time.perf_counter() - t0
+    kern, err, same, bad, k_s, p_s = kernel_and_plain(
+        S.exts2_batch, args, S.exts2_traced, S.exts2_traced_reference)
     counted = S.wide_fills - before
-    t0 = time.perf_counter()
-    plain = S.exts2_batch(*args, device=DEVICE,
-                          fn=keep("plain", S.exts2_traced_reference))
-    p_s = time.perf_counter() - t0
-    err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
-              for a, b in zip(raw["kernel"], raw["plain"]))
-    same = all(torch.equal(a, b) for a, b in zip(raw["kernel"], raw["plain"]))
-    bad = [(i, f) for i, (k, p) in enumerate(zip(kern, plain))
-           for f in EZ_FIELDS if getattr(k, f) != getattr(p, f)]
     if not same or bad or counted != nw:
         raise AssertionError("exts2 wide launch: kernel == plain %s, fields "
                              "%s, wide_fills counted %d of %d"
@@ -1049,6 +1096,7 @@ def phase_sam(tmp, ref, reads):
         "%s %.3f" % (k, v[0]) for k, v in sorted(stages.items())))
     say(6, "counters: " + ", ".join(
         "%s %d" % (k, v) for k, v in sorted(counters.items())))
+    say(6, d2_line(stages, counters))
     busy = stages["chain.gpu_busy"][0] + stages["ext.gpu_busy"][0]
     say(6, "card busy %.3f s (chain.gpu_busy %.3f + ext.gpu_busy %.3f) of "
         "%.3f s wall: idle share %.3f" % (
@@ -1183,6 +1231,22 @@ def report(phase, what, wall, n_reads, stages, counters):
             1 - busy / (wall - stages["index"][0])))
 
 
+def d2_line(stages, counters):
+    """K3's counters of one --profile run: the flushes' serial rows, the
+    wide fills, and its card time a row by ext.gpu_busy (events around
+    upload and launch) and by its own stamps (ext.d2_kernel)."""
+    rows = counters["ext.d2_rows"]
+    return ("through K3: ext.d2_rows %d (the flushes' longest fills' rows) "
+            "over %d flushes, ext.d2_wide %d, ext.gpu_busy %.3f s, %.3f us "
+            "a row; the kernel's own time (its stamps) ext.d2_kernel %.3f "
+            "s, %.3f us a row" % (
+                rows, counters["ext.dispatches"],
+                counters.get("ext.d2_wide", 0), stages["ext.gpu_busy"][0],
+                stages["ext.gpu_busy"][0] * 1e6 / rows,
+                stages["ext.d2_kernel"][0],
+                stages["ext.d2_kernel"][0] * 1e6 / rows))
+
+
 def sam_records(text):
     return [ln.split("\t") for ln in text.splitlines()
             if ln and not ln.startswith("@")]
@@ -1236,6 +1300,7 @@ def phase_sr(tmp, ref):
             if ctr.get("ext.fills", 0) <= 0:
                 raise AssertionError("-x sr SAM: no fill reached K3")
             report(8, "SAM through K3", w, 2 * SR_SAM_PAIRS, st, ctr)
+            say(8, d2_line(st, ctr))
         else:
             only_k2(8, "SAM through the host extension", c)
             say(8, "SAM through the host extension: %.3f s wall, %.3f "

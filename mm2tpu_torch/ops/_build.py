@@ -79,16 +79,27 @@ def load() -> ctypes.CDLL:
                 r.returncode, " ".join(cmd), r.stderr))
         build_log = "".join(logs)
         os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.mm2tpu_chain_v3.argtypes = [vp] * 7 + [i32] * 6 + [
-        ctypes.c_float, i32, vp]
-    lib.mm2tpu_chain_v3.restype = i32
-    lib.mm2tpu_chain_v2.argtypes = [vp] * 8 + [i32] * 6 + [
-        ctypes.c_float, i32, i32, i32, i32, vp]
-    lib.mm2tpu_chain_v2.restype = i32
-    lib.mm2tpu_ksw2_extd2.argtypes = [vp] * 9 + [i32] * 18 + [vp]
-    lib.mm2tpu_ksw2_extd2.restype = i32
-    lib.mm2tpu_ksw2_exts2.argtypes = [vp] * 12 + [i32] * 17 + [vp]
-    lib.mm2tpu_ksw2_exts2.restype = i32
+    return bind(ctypes.CDLL(str(so)))
+
+
+_vp, _i32 = ctypes.c_void_p, ctypes.c_int
+# the C entry points of csrc/*.cu: argument types (all return an int32
+# cudaError_t)
+SIGNATURES = {
+    "mm2tpu_chain_v3": [_vp] * 7 + [_i32] * 6 + [ctypes.c_float, _i32, _vp],
+    "mm2tpu_chain_v2": [_vp] * 8 + [_i32] * 6 + [ctypes.c_float, _i32, _i32,
+                                                 _i32, _i32, _vp],
+    "mm2tpu_ksw2_extd2": [_vp] * 10 + [_i32] * 20 + [_vp],
+    "mm2tpu_ksw2_exts2": [_vp] * 12 + [_i32] * 17 + [_vp],
+}
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Give each entry point of SIGNATURES that `lib` exports its
+    argument and return types."""
+    for name, argtypes in SIGNATURES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = _i32
     return lib

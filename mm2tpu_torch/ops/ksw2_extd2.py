@@ -14,12 +14,19 @@ states the Hopper design.
 - `extd2_traced_reference`: the plain PyTorch version, serial over
   anti-diagonal rows and vectorised over (fill, column), then a
   vectorised trace.
+- `ring_need`, `ring_plan`, `launch_plan`: the columns of the
+  shared-memory ring a fill's band needs, a launch's ring width, shared
+  memory and the fills too wide for it, and the layout of its band
+  planes.
 - `extd2_traced`: the wrapper. A CPU tensor runs the plain version; a
   CUDA tensor launches `csrc/ksw2_extd2.cu` or raises.
 - `extd2_batch`: (q8, t8) pairs in, `ExtzResult`s with CIGARs out.
 
-`launches` counts kernel launches and `reference_calls` runs of the
-plain version.
+`launches` counts kernel launches, `wide_fills` the fills they ran on
+state in device memory (too wide for the ring) and `reference_calls`
+runs of the plain version; `last_stamps` holds the last launch's (B, 3)
+int64 `%globaltimer` readings of each fill (start, after the last row,
+after the trace), on the card.
 
 Left out on purpose: the XLA shape ladder (`quantize_shapes`,
 `_ROW_LADDER`), `rows_per_program` and the padding of a batch to a power
@@ -51,7 +58,17 @@ R_ZDROP, R_MAX, R_MAXQ, R_MAXT, R_MQE, R_MQET, R_MTE, R_MTEQ, \
 NREG = 16   # width of the ez register rows (the 14 columns above, 2 unused)
 
 launches = 0
+wide_fills = 0
 reference_calls = 0
+last_stamps = None
+
+# csrc/ksw2_extd2.cu: the widest ring (columns), the int32 values a ring
+# column holds (u, v, x, y, x2, y2, H in two generations, s), the
+# trace's staged tile and the dynamic shared memory a block may have
+RING_MAX = 2048
+RING_STATES = 15
+TRACE_TILE_BYTES = (2 * 64 - 1) * 64
+SMEM_MAX = 232448 - 1024
 
 
 # ---------------------------------------------------------------------------
@@ -115,13 +132,16 @@ def _cigar_from_ops(ops_row: np.ndarray, i_fin: int, j_fin: int,
 # ---------------------------------------------------------------------------
 
 
-def band_cap(qlen: int, tlen: int, w: int) -> int:
+def band_cap(qlen, tlen, w: int):
     """Bytes of one direction row: every 16-aligned band [st, en] of the
     fill fits (`n_col_ * 16` of ksw_extd2_sse, native/mm2tpu_native.cpp
-    :981-997)."""
-    if w < 0:
-        w = max(qlen, tlen)
-    return ((min(qlen, tlen, w + 1) + 15) // 16 + 1) * 16
+    :981-997). qlen and tlen are ints, or arrays of one launch's fills
+    (then an array)."""
+    narrow = np.minimum(qlen, tlen)
+    if w >= 0:
+        narrow = np.minimum(narrow, w + 1)
+    cap = ((narrow + 15) // 16 + 1) * 16
+    return cap if np.ndim(cap) else int(cap)
 
 
 def gap_constants(q: int, e: int, q2: int, e2: int):
@@ -239,11 +259,12 @@ def extd2_traced_reference(lens, tsf, qcol, *, q: int, e: int, q2: int,
                            e2: int, zdrop: int, sc_mch: int, sc_mis: int,
                            sc_N: int, w: int, right: bool, approx: bool,
                            approx_drop: bool, extz_only: bool,
-                           end_bonus: int):
+                           end_bonus: int, lens_h=None):
     """Plain version of `extd2_traced`. lens (B, 2) int32, tsf (B, Tpad)
-    uint8, qcol (B, Qpad) uint8, all on one device. Returns (ez (B, 16)
-    int32, ops (B, Smax) uint8 with 255 = inactive, i_fin (B,) int32,
-    j_fin (B,) int32), Smax = max(qlen + tlen - 1).
+    uint8, qcol (B, Qpad) uint8, all on one device; lens_h, if given, is
+    lens on the host. Returns (ez (B, 16) int32, ops (B, Smax) uint8
+    with 255 = inactive, i_fin (B,) int32, j_fin (B,) int32), Smax =
+    max(qlen + tlen - 1).
 
     The DP follows `_extd2_kernel` without its band window: every row is
     a (B, Tpad) masked update, so cells outside a fill's band keep their
@@ -269,7 +290,8 @@ def extd2_traced_reference(lens, tsf, qcol, *, q: int, e: int, q2: int,
     B, T = tsf.shape
     q, e, q2, e2, long_thres, long_diff = gap_constants(q, e, q2, e2)
     qe, qe2 = q + e, q2 + e2
-    lens_h = lens.cpu().numpy().astype(np.int64)
+    lens_h = np.asarray(lens.cpu().numpy() if lens_h is None else lens_h,
+                        np.int64)
     qlen_h, tlen_h = lens_h[:, 0], lens_h[:, 1]
     R = int((qlen_h + tlen_h).max()) - 1
     cap = max(band_cap(int(a), int(b), w) for a, b in lens_h)
@@ -563,6 +585,67 @@ def _trace_reference(plane, st, en, i0, j0, Smax: int, table=_NEXT):
     return ops, i, j
 
 
+def ring_need(qlen: int, tlen: int, w: int) -> int:
+    """Ring columns the rows of one (qlen, tlen) fill under band w need:
+    the largest over its rows r (up to the row before its band breaks)
+    of M_r - st_r + 2, where st_r is the row's 16-aligned start and M_r
+    the largest hi = max(en, fe - 1) of rows 0..r, so that the columns a
+    row reads (from st_r - 1 on) and every column written since they
+    were last written (up to M_r) never share a slot t mod W. At most
+    `ring_bound`."""
+    st, en, st0, en0 = band_offsets(qlen, tlen, w)
+    brk = np.flatnonzero(st0 > en0)
+    n = int(brk[0]) if len(brk) else len(st)
+    fe = st0[:n] + (en0[:n] - st0[:n]) // 16 * 16 + 16
+    hi = np.maximum(en[:n], fe - 1)
+    return int((np.maximum.accumulate(hi) - st[:n] + 2).max())
+
+
+def ring_bound(lens_h, w: int):
+    """An upper bound of `ring_need` for each fill of lens_h (B, 2), in a
+    few numpy operations on (B,) arrays: min(qlen, tlen, w + 1) + 31
+    (a band is at most w + 1 columns wide, and M_r - st_r exceeds the
+    band's width by less than 32)."""
+    lens_h = np.asarray(lens_h, np.int64).reshape(-1, 2)
+    narrow = lens_h.min(1)
+    return (narrow if w < 0 else np.minimum(narrow, w + 1)) + 31
+
+
+def ring_plan(lens_h, w: int):
+    """(W, smem bytes, wide mask) of one launch over fills lens_h (B, 2)
+    = [qlen, tlen] under band w. A fill's need is `ring_bound`, or its
+    exact `ring_need` when the bound exceeds RING_MAX; a fill whose need
+    exceeds RING_MAX runs on state in device memory (wide). W is the
+    smallest power of two (at least 16) that the others need, and the
+    block's dynamic shared memory holds W columns of RING_STATES int32
+    values or the trace's tile, whichever is larger."""
+    lens_h = np.asarray(lens_h, np.int64).reshape(-1, 2)
+    need = ring_bound(lens_h, w)
+    for k in np.flatnonzero(need > RING_MAX):
+        need[k] = ring_need(int(lens_h[k, 0]), int(lens_h[k, 1]), w)
+    wide = need > RING_MAX
+    most = int(need[~wide].max()) if (~wide).any() else 16
+    W = max(16, 1 << (most - 1).bit_length())
+    return W, max(RING_STATES * 4 * W, TRACE_TILE_BYTES), wide
+
+
+def launch_plan(lens_h, w: int):
+    """Host side of one kernel launch over fills lens_h (B, 2) under band
+    w: (meta (B, 3) int64 = [byte offset of the fill's band plane, its
+    row width `band_cap`, -1 for a ring fill else its index in the
+    device-memory state], plane bytes, Smax = the most rows, W, smem,
+    wide mask) (`ring_plan`). Each plane holds R_b rows of its width,
+    laid end to end; numpy on (B,) arrays, no loop over fills."""
+    lens_h = np.asarray(lens_h, np.int64).reshape(-1, 2)
+    R = lens_h.sum(1) - 1
+    caps = band_cap(lens_h[:, 0], lens_h[:, 1], w)
+    d_off = np.concatenate(([0], np.cumsum(R * caps)))
+    W, smem, wide = ring_plan(lens_h, w)
+    slot = np.where(wide, np.cumsum(wide) - 1, -1)
+    return (np.stack([d_off[:-1], caps, slot], 1), int(d_off[-1]),
+            int(R.max()), W, smem, wide)
+
+
 def _check_inputs(lens, tsf, qcol) -> None:
     dev = lens.device
     if lens.dim() != 2 or lens.shape[1] != 2 or lens.shape[0] < 1:
@@ -583,65 +666,69 @@ def _check_inputs(lens, tsf, qcol) -> None:
 def extd2_traced(lens, tsf, qcol, *, q: int, e: int, q2: int, e2: int,
                  zdrop: int, sc_mch: int, sc_mis: int, sc_N: int, w: int,
                  right: bool, approx: bool, approx_drop: bool,
-                 extz_only: bool, end_bonus: int):
+                 extz_only: bool, end_bonus: int, lens_h=None):
     """extd2 DP + backtrack start + trace for B fills in one call (the
     contract of `ksw2_pallas.extd2_device_traced`). CPU tensors run the
     plain version; CUDA tensors launch `csrc/ksw2_extd2.cu` on the
     current stream. lens (B, 2) int32, tsf (B, Tpad) and qcol (B, Qpad)
     uint8, contiguous, with Tpad >= longest target + 16 and Qpad >=
-    longest query (as `pack_fills` makes them). Returns (ez (B, 16)
-    int32, ops (B, Smax) uint8, i_fin (B,) int32, j_fin (B,) int32)."""
-    global launches
+    longest query (as `pack_fills` makes them). lens_h is lens on the
+    host (`Packed.lens`); without it the wrapper reads lens back, which
+    waits for the stream. Returns (ez (B, 16) int32, ops (B, Smax) uint8,
+    i_fin (B,) int32, j_fin (B,) int32)."""
+    global launches, wide_fills, last_stamps
     kw = dict(q=q, e=e, q2=q2, e2=e2, zdrop=zdrop, sc_mch=sc_mch,
               sc_mis=sc_mis, sc_N=sc_N, w=w, right=right, approx=approx,
               approx_drop=approx_drop, extz_only=extz_only,
               end_bonus=end_bonus)
-    if lens.device.type == "cpu":
-        return extd2_traced_reference(lens, tsf, qcol, **kw)
-    if lens.device.type != "cuda":
+    if lens.device.type not in ("cpu", "cuda"):
         raise ValueError("extd2_traced: unsupported device %s" % lens.device)
     _check_inputs(lens, tsf, qcol)
-    lens_h = lens.cpu().numpy().astype(np.int64)
-    if (lens_h < 1).any() or \
+    lens_h = np.asarray(lens.cpu().numpy() if lens_h is None else lens_h,
+                        np.int64)
+    if lens_h.shape != tuple(lens.shape) or (lens_h < 1).any() or \
             int(lens_h[:, 1].max()) + 16 > tsf.shape[1] or \
             int(lens_h[:, 0].max()) > qcol.shape[1]:
         raise ValueError("lens do not fit tsf (needs tlen + 16 <= %d) or "
                          "qcol (needs qlen <= %d)"
                          % (tsf.shape[1], qcol.shape[1]))
+    if lens.device.type == "cpu":
+        return extd2_traced_reference(lens, tsf, qcol, **kw, lens_h=lens_h)
     from . import _build
     lib = _build.load()
     B, Tpad = tsf.shape
-    R = lens_h[:, 0] + lens_h[:, 1] - 1
-    caps = np.array([band_cap(int(a), int(b), w) for a, b in lens_h],
-                    np.int64)
-    # each fill's band plane: R_b rows of caps_b bytes, laid end to end
-    d_off = np.concatenate(([0], np.cumsum(R * caps)))
-    Smax = int(R.max())
+    meta, plane_bytes, Smax, W, smem, wide = launch_plan(lens_h, w)
+    n_wide = int(wide.sum())
     q_, e_, q2_, e2_, long_thres, long_diff = gap_constants(q, e, q2, e2)
     dev = lens.device
-    meta = torch.from_numpy(np.stack([d_off[:-1], caps], 1)).to(dev)
-    # per fill: u, v, x, y, x2, y2 in two generations, s, H
+    meta = torch.from_numpy(meta).pin_memory().to(dev, non_blocking=True)
+    # the wide fills' u, v, x, y, x2, y2, H in two generations and s, a
+    # column's values side by side
     stride = Tpad + 16
-    state = torch.empty((B, 14, stride), dtype=torch.int32, device=dev)
-    plane = torch.empty(int(d_off[-1]), dtype=torch.uint8, device=dev)
+    state = torch.empty((n_wide, stride, RING_STATES), dtype=torch.int32,
+                        device=dev) if n_wide else None
+    plane = torch.empty(plane_bytes, dtype=torch.uint8, device=dev)
     ez = torch.empty((B, NREG), dtype=torch.int32, device=dev)
     ops = torch.empty((B, Smax), dtype=torch.uint8, device=dev)
     ij = torch.empty((B, 2), dtype=torch.int32, device=dev)
+    stamps = torch.empty((B, 3), dtype=torch.int64, device=dev)
     flags = (int(right) | int(approx) << 1 | int(approx_drop) << 2
              | int(extz_only) << 3)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.mm2tpu_ksw2_extd2(
             lens.data_ptr(), tsf.data_ptr(), qcol.data_ptr(),
-            meta.data_ptr(), state.data_ptr(), plane.data_ptr(),
-            ez.data_ptr(), ops.data_ptr(), ij.data_ptr(),
-            B, Tpad, qcol.shape[1], stride, Smax,
-            q_, e_, q2_, e2_, long_thres, long_diff, zdrop, sc_mch, sc_mis,
-            sc_N, w, end_bonus, flags, stream)
+            meta.data_ptr(), None if state is None else state.data_ptr(),
+            plane.data_ptr(), ez.data_ptr(), ops.data_ptr(), ij.data_ptr(),
+            stamps.data_ptr(), B, Tpad, qcol.shape[1], stride, Smax, W,
+            smem, q_, e_, q2_, e2_, long_thres, long_diff, zdrop, sc_mch,
+            sc_mis, sc_N, w, end_bonus, flags, stream)
     if err != 0:
         raise RuntimeError("ksw2_extd2 kernel launch failed: cudaError %d"
                            % err)
     launches += 1
+    wide_fills += n_wide
+    last_stamps = stamps
     return ez, ops, ij[:, 0], ij[:, 1]
 
 
@@ -710,13 +797,26 @@ def extd2_batch(tasks: Sequence[tuple], mat, q: int, e: int, q2: int,
         return results
     cells = sum((min(2 * w + 1, len(tasks[i][0])) if w >= 0
                  else len(tasks[i][0])) * len(tasks[i][1]) for i in run_idx)
+    launched = launches
     ez, ops, i_f, j_f = run_packed(pk, device, lambda *planes: fn(
         *planes, q=q, e=e, q2=q2, e2=e2, zdrop=zdrop, sc_mch=pk.sc_mch,
         sc_mis=pk.sc_mis, sc_N=pk.sc_N, w=w, right=bool(flag & KSW_EZ_RIGHT),
         approx=bool(flag & KSW_EZ_APPROX_MAX),
         approx_drop=bool(flag & KSW_EZ_APPROX_DROP),
-        extz_only=bool(flag & KSW_EZ_EXTZ_ONLY), end_bonus=int(end_bonus)),
-        cells)
+        extz_only=bool(flag & KSW_EZ_EXTZ_ONLY), end_bonus=int(end_bonus),
+        lens_h=pk.lens), cells)
+    if profiling.enabled:
+        # the flush's serial rows (its longest fill's) and the fills that
+        # the kernel runs on state in device memory
+        profiling.count("ext.d2_rows", int(pk.lens.sum(1).max()) - 1)
+        profiling.count("ext.d2_wide", int(ring_plan(pk.lens, w)[2].sum()))
+        if launches != launched:
+            # the kernel's own time, from its first fill's start to its
+            # last fill's end: ext.gpu_busy also holds the host's work
+            # between the upload and the launch
+            st = last_stamps.cpu().numpy()
+            profiling.add("ext.d2_kernel",
+                          float(st[:, 2].max() - st[:, 0].min()) / 1e9)
 
     rev_cigar = bool(flag & KSW_EZ_REV_CIGAR)
     for bi, i in enumerate(run_idx):

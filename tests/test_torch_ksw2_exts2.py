@@ -22,6 +22,8 @@ from mm2tpu_torch.mapping.extbatch import TorchExtBatcher, worker_scope
 from mm2tpu_torch.ops import ksw2_exts2 as S
 from mm2tpu_torch.ops import ksw2_extd2 as X
 from test_ksw2_pallas import FIELDS, MAT, mutate, splice_tasks
+from test_torch_ksw2_shim import (build_on_cpu, one_torch_thread,
+                                  ring_check)
 
 FOR, REV, FLANK = K.KSW_EZ_SPLICE_FOR, K.KSW_EZ_SPLICE_REV, \
     K.KSW_EZ_SPLICE_FLANK
@@ -354,74 +356,6 @@ def row_spans(qlen, tlen):
     return st0, en0, st, en, fe, np.maximum(en, fe - 1)
 
 
-def ring_check(qlen, tlen, W):
-    """Replay the ring accesses of csrc/ksw2_exts2.cu for one fill on a
-    ring of W slots (column t at t mod W) and return the first fault, or
-    None. Arrays: u/v/x/y/x2 and the H row of the exact max in two
-    generations (row r reads generation r mod 2, written by row r-1, and
-    writes the other; the control warp reads row r-1's H at its en0 and
-    st0 during row r) and the score row s. For every row r:
-      - a column read from the ring holds that column's last write: its
-        slot's last writer is the same column (for u..x2 and H, row r-1);
-      - the columns read in row r and the columns written to the same
-        array in rows r-1 and r never share a slot unless they are the
-        same column;
-      - a column read by rule (u..x2 above the previous row's en, s above
-        the largest column any row refreshed) was written by no earlier
-        row, so device memory would still hold the initial value the
-        kernel takes instead; H is never read by rule."""
-    st0, en0, st, en, fe, hi = row_spans(qlen, tlen)
-    ever = {"uv": set(), "s": set(), "H": set()}
-    last = {}          # (array, generation, slot) -> (column, row)
-    prev_st = prev_en = sfront = -1
-    wrote_prev = {}
-    for r in range(qlen + tlen - 1):
-        g_old, g_new = r % 2, (r + 1) % 2
-        cols = list(range(st[r], en[r] + 1))
-        reads, rule = [], []
-        covered = st[r] > 0 and prev_st <= st[r] - 1 <= prev_en
-        tm1 = ([st[r] - 1] if covered else []) + [t - 1 for t in cols[1:]]
-        for c in cols + tm1:
-            (rule if c > prev_en else reads).append(("uv", g_old, c))
-        stale = [c for c in cols if not st0[r] <= c < fe[r]]
-        for c in stale:
-            (rule if c > sfront else reads).append(("s", 0, c))
-        if r > 0:
-            # the cells of [st0, en0), the seed (H at en0-1, or at 0 when
-            # en0 is 0) and the control warp (row r-1's en0 and st0)
-            hcols = list(range(st0[r], en0[r])) + [max(en0[r] - 1, 0)] + \
-                [en0[r - 1], st0[r - 1]]
-            reads += [("H", g_old, c) for c in hcols]
-        writes = [("uv", g_new, c) for c in cols] + \
-            [("s", 0, c) for c in range(st0[r], fe[r])] + \
-            [("H", g_new, c) for c in range(st0[r], en0[r] + 1)]
-        for a, g, c in rule:
-            if c in ever[a]:
-                return "row %d: %s column %d read by rule, but written" % (
-                    r, a, c)
-        for a, g, c in reads:
-            if c not in ever[a]:
-                return "row %d: %s column %d read, never written" % (r, a, c)
-            col, row = last[(a, g, c % W)]
-            if col != c or (a != "s" and row != r - 1):
-                return "row %d: %s column %d finds column %d of row %d" % (
-                    r, a, c, col, row)
-        slots = {}
-        for a, g, c in writes + list(wrote_prev.get(r - 1, [])):
-            slots.setdefault((a, g, c % W), set()).add(c)
-        for a, g, c in reads:
-            if slots.get((a, g, c % W), {c}) != {c}:
-                return "row %d: %s column %d shares a slot with %s" % (
-                    r, a, c, sorted(slots[(a, g, c % W)]))
-        for a, g, c in writes:
-            ever[a].add(c)
-            last[(a, g, c % W)] = (c, r)
-        wrote_prev = {r: writes}
-        prev_st, prev_en = st[r], en[r]
-        sfront = max(sfront, fe[r] - 1)
-    return None
-
-
 def test_ring_need_matches_the_row_spans():
     """`ring_need`'s closed form equals max over rows of (the largest hi so
     far - st + 2), from the row spans, on every (qlen, tlen) up to 80,
@@ -470,13 +404,13 @@ def test_ring_rule_property(name):
         assert not wide[0] and W >= need and W & (W - 1) == 0
         assert W == 16 or W // 2 < need
         assert smem == max(S.RING_STATES * 4 * W, S.TRACE_TILE_BYTES)
-        assert ring_check(qlen, tlen, W) is None, (qlen, tlen, W)
+        spans = row_spans(qlen, tlen)
+        assert ring_check(spans, W) is None, (qlen, tlen, W)
         if name == "at_the_limit" and (qlen, tlen) in RING_FILLS[name]:
             assert need in (32, 64, 128) and W == need
-        assert ring_check(qlen, tlen, need) is None, (qlen, tlen, need)
+        assert ring_check(spans, need) is None, (qlen, tlen, need)
         if qlen + tlen > 2:
-            assert ring_check(qlen, tlen, need - 2) is not None, \
-                (qlen, tlen)
+            assert ring_check(spans, need - 2) is not None, (qlen, tlen)
 
 
 def test_ring_plan_wide_mask():
@@ -554,111 +488,17 @@ def test_exts2_batch_counts_s2_rows_and_passes_host_lens():
         S.exts2_traced(*planes, **kw, lens_h=planes[0].numpy()[:1])
 
 
-# A CPU stand-in for the CUDA that csrc/ksw2_exts2.cu uses, so that g++
-# can build the kernel's own source here: one std::thread per CUDA
-# thread, blocks in series, std::barrier for __syncthreads and for the
-# two halves of a warp reduction, a static array for the dynamic shared
-# memory.
-CUDA_SHIM = r"""
-#pragma once
-#include <algorithm>
-#include <barrier>
-#include <chrono>
-#include <cstddef>
-#include <cstdint>
-#include <functional>
-#include <thread>
-#include <vector>
-using std::max;
-using std::min;
-#define __global__
-#define __device__
-#define __forceinline__ inline
-#define __launch_bounds__(...)
-#define __align__(x) alignas(x)
-#define __shared__ static
-struct dim3_ { int x = 0; };
-inline thread_local dim3_ threadIdx, blockIdx;
-struct alignas(8) int2 { int x, y; };
-inline int2 make_int2(int a, int b) { return int2{a, b}; }
-template <class T> inline T __ldg(const T* p) { return *p; }
-typedef int cudaError_t;
-typedef void* cudaStream_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
-enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
-template <class F> inline cudaError_t cudaFuncSetAttribute(F, int, int) {
-  return cudaSuccess;
-}
-inline cudaError_t cudaGetLastError() { return cudaSuccess; }
-inline std::barrier<>* g_bar;
-inline std::barrier<>* g_warp_bar[32];
-inline int g_warp_buf[32][32];
-inline void __syncthreads() { g_bar->arrive_and_wait(); }
-inline int __reduce_max_sync(unsigned, int v) {
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  g_warp_buf[w][lane] = v;
-  g_warp_bar[w]->arrive_and_wait();
-  int m = v;
-  for (int k = 0; k < 32; ++k) m = std::max(m, g_warp_buf[w][k]);
-  g_warp_bar[w]->arrive_and_wait();
-  return m;
-}
-inline unsigned long long shim_timer() {
-  return std::chrono::duration_cast<std::chrono::nanoseconds>(
-      std::chrono::steady_clock::now().time_since_epoch()).count();
-}
-inline void shim_launch(int nb, int nt, std::function<void()> f) {
-  for (int b = 0; b < nb; ++b) {
-    std::barrier<> bar(nt);
-    g_bar = &bar;
-    for (int w = 0; w < nt / 32; ++w) g_warp_bar[w] = new std::barrier<>(32);
-    std::vector<std::thread> th;
-    for (int t = 0; t < nt; ++t)
-      th.emplace_back([&, t, b]() { threadIdx.x = t; blockIdx.x = b; f(); });
-    for (auto& x : th) x.join();
-    for (int w = 0; w < nt / 32; ++w) delete g_warp_bar[w];
-  }
-}
-"""
-
-
 @pytest.fixture(scope="module")
 def kernel_on_cpu(tmp_path_factory):
-    """csrc/ksw2_exts2.cu built with g++ against CUDA_SHIM, with its C
-    entry point bound by ctypes exactly as ops/_build.py binds it."""
-    import ctypes
-    import re
-    import subprocess
+    """csrc/ksw2_exts2.cu built with g++ against the CUDA stand-in, with
+    its C entry point bound by ctypes exactly as ops/_build.py binds it.
+    96 threads: the control warp and two compute warps, so a row wider
+    than 64 columns takes the kernel's loop over a thread's columns."""
     from pathlib import Path
-    d = tmp_path_factory.mktemp("exts2_shim")
     src = (Path(S.__file__).resolve().parent.parent / "csrc" /
            "ksw2_exts2.cu").read_text()
-    for old, new in (
-            ("#include <cuda_runtime.h>", '#include "cuda_shim.h"'),
-            ("extern __shared__ __align__(16) unsigned char dsmem[];",
-             "alignas(16) static unsigned char dsmem[232448];"),
-            ('asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));',
-             "t = shim_timer();")):
-        assert src.count(old) == 1, old
-        src = src.replace(old, new)
-    src, n = re.subn(r"exts2_kernel<<<B, THREADS, smem, stream>>>\(",
-                     "shim_launch(B, THREADS, [&]() { exts2_kernel(", src)
-    assert n == 1
-    src = src.replace("Tpad, Qpad, stride, Smax, W, p);\n  return",
-                      "Tpad, Qpad, stride, Smax, W, p); });\n  return")
-    (d / "cuda_shim.h").write_text(CUDA_SHIM)
-    (d / "k.cpp").write_text(src)
-    so = d / "libexts2_shim.so"
-    # 96 threads: the control warp and two compute warps, so a row wider
-    # than 64 columns takes the kernel's loop over a thread's columns
-    subprocess.run(["g++", "-std=c++20", "-O1", "-fno-strict-aliasing",
-                    "-DEXTS2_THREADS=96", "-shared", "-fPIC", "-pthread",
-                    "-o", str(so), str(d / "k.cpp")], check=True, cwd=d)
-    lib = ctypes.CDLL(str(so))
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.mm2tpu_ksw2_exts2.argtypes = [vp] * 12 + [i32] * 17 + [vp]
-    lib.mm2tpu_ksw2_exts2.restype = i32
-    return lib
+    return build_on_cpu(src, tmp_path_factory.mktemp("exts2_shim"),
+                        ("EXTS2_THREADS=96",))
 
 
 def shim_traced(lib, lens, tsf, qcol, don, acc, *, q, e, q2, zdrop, sc_mch,
@@ -722,6 +562,7 @@ def test_kernel_source_on_cpu_matches_plain(kernel_on_cpu, name, wide_too):
               approx=bool(flag & APPROX), approx_drop=bool(flag & DROP),
               extz_only=bool(flag & EXT))
     got = shim_traced(kernel_on_cpu, *planes, **kw, wide_too=wide_too)
-    want = S.exts2_traced_reference(*planes, **kw)
+    with one_torch_thread():
+        want = S.exts2_traced_reference(*planes, **kw)
     for a, b in zip(got, want):
         assert torch.equal(a, b.to(a.dtype))
