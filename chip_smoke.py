@@ -9,7 +9,8 @@ Run from the root of a checkout, with no arguments, for the full gate:
 
 or with `--phases LIST` (for example `--phases 1,3` to build and try
 the extd2 kernel, `--phases 1,3,5,6` to add the map-ont SAM path,
-`--phases 1,3b,9` for the splice kernel and the spliced-read path) to run
+`--phases 1,3b,9` for the splice kernel and the spliced-read path,
+`--phases 1,2,4` for the chaining kernel's K1 and K2) to run
 phase 0, the named phases and phase 11's import check only; the kernel
 JSON line then lists only the kernels whose phase ran (launches null
 where their path's phase did not run). Phase 6 needs 5, 7 needs 5 and 6,
@@ -26,7 +27,10 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      against its plain PyTorch version on the card, on seeded synthetic
      batches from (8, 1024) up to the map-ont path's largest bucket
      (128, 65536), under four settings (the map-ont one only at the
-     largest shape), f and p equal, with both timed
+     largest shape), and on a batch shaped like the pipeline's launches
+     (B = 128: 100 rows of ragged n, 28 empty rows) under all four; f
+     and p equal, with both timed (and the kernel's us a step: its ms
+     over the batch's largest n)
   3. the extd2 kernel K3 (extension DP, backtrack start and trace)
      against its plain version on the card: seeded fills of 300-1000 and
      2000-5000 bases (10% substitutions, 5% indels), B = 8 and 64,
@@ -54,11 +58,13 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      pairs at dr = 0) and single-segment cDNA batches, contracts
      (is_cdna, n_segs) in {(F, 2), (T, 1), (T, 2)}, shapes (8, 1024),
      (128, 1024) and (64, 16384), under -x sr's and -x splice's chaining
-     settings, gap_scale 0.8 and iter_cap 500; f and p equal, both timed
-     at the largest shape
+     settings, gap_scale 0.8 and iter_cap 500, and a pipeline-shaped
+     batch as in phase 2 for each contract; f and p equal, both timed at
+     the largest shape (with the kernel's us a step)
   5. the map-ont PAF path: `mm2tpu_torch.cli.main -x map-ont --device
      cuda` on a seeded 48 Mb genome with 1000 ONT-like reads; >= 95% of
-     the reads must map, and only K1 may have chained
+     the reads must map, and only K1 may have chained (its launches,
+     anchors, padded anchors and card time from the chain.* counters)
   6. the map-ont SAM path: the same reads with `-a --align-backend gpu
      --align-tpu-min-mat 1`, every extension fill on K3 (the flushes'
      serial rows ext.d2_rows, the wide fills ext.d2_wide, K3's card time
@@ -130,6 +136,9 @@ EXT_PARITY_READS = 20     # of the parity reads, through the plain extd2
 # kernel line of the JSON reports; it runs the map-ont setting only (its
 # plain version takes ~30 s a call), the others every setting.
 SHAPES = [(8, 1024), (32, 8192), (64, 16384), (128, 65536)]
+# the batch shaped like the pipeline's launches (B_SIZES' largest, the
+# chunk's tasks then empty rows): (B, real rows, N) for K1 and for K2
+PIPELINE_BATCH = {"chain_v3": (128, 100, 8192), "chain_v2": (128, 100, 1024)}
 CONFIGS = {
     "map-ont": dict(max_dist_x=5000, max_dist_y=5000, bw=500, iter_cap=5000,
                     gap_scale=1.0),
@@ -203,9 +212,10 @@ MIN_MAPPED_SR_SPLICE = 0.90
 # The bound of a kernel (the least time the card could take for the same
 # work): the larger of its bytes over the H100's 3.35 TB/s and its int32
 # instructions over 132 SMs x 64 int32 lanes at the SM clock. Instructions
-# a chaining candidate takes in csrc/chain.cu (loop, ring loads, gates,
-# gap, key, max) and a DP cell in csrc/ksw2_extd2.cu, counted from the
-# source.
+# a chaining candidate takes (gates, gap, key, max; counted from the first
+# design of csrc/chain.cu, one warp a task, and kept so that the bounds of
+# later designs compare) and a DP cell in csrc/ksw2_extd2.cu, counted
+# from the source.
 SMS, INT32_LANES, HBM_BYTES_S = 132, 64, 3.35e12
 OPS_PER_CANDIDATE = {"chain_v3": 32, "chain_v2": 45}
 OPS_PER_CELL = 50
@@ -247,8 +257,14 @@ EXTS2_FLAGS = {
 }
 
 
+_T0 = time.monotonic()
+
+
 def say(phase, msg):
-    print("[chip_smoke] phase %s: %s" % (phase, msg), flush=True)
+    """One line of a phase's report, with the seconds since the script
+    started."""
+    print("[chip_smoke] phase %s (%.1f s): %s" % (
+        phase, time.monotonic() - _T0, msg), flush=True)
 
 
 def card_line() -> str:
@@ -297,6 +313,40 @@ def synth_batch(B, N, seed):
                                                DEVICE)
     qi, span, _ = derive_qss(yhi, ylo)
     return hi, lo, qi.contiguous(), span.contiguous(), n, avg
+
+
+def pipeline_batch(B, n_real, N, seed, n_segs=1, cdna=False):
+    """B rows as the pipeline launches them: `n_real` tasks of ragged n in
+    [1, N] (every fourth one near N, so that the window hits its cap),
+    then empty rows. Returns the CUDA planes hi, lo, qi, span, sid, n,
+    avg."""
+    from mm2tpu_torch.ops.chain_packed import (derive_qss, pack_tasks16,
+                                               planes_to_torch)
+    kinds = [dict(n_rids=3, rev_frac=0.4), dict(scale=1, span=19),
+             dict(scale=400 if cdna else 200, n_rids=2, rev_frac=1.0),
+             dict(scale=2)]
+    rng = np.random.default_rng(seed)
+    tasks = []
+    for b in range(n_real):
+        n = int(rng.integers(N - 31, N + 1) if b % 4 == 3
+                else rng.integers(1, N + 1))
+        a = synth_anchors(n, seed=seed + b, **kinds[b % 4])
+        tasks.append(two_segment(a, seed + b) if n_segs > 1 else a)
+    tasks += [np.zeros((0, 2), np.uint64)] * (B - n_real)
+    hi, lo, yhi, ylo, n, avg = planes_to_torch(*pack_tasks16(tasks, N),
+                                               DEVICE)
+    qi, span, sid = derive_qss(yhi, ylo)
+    return (hi, lo, qi.contiguous(), span.contiguous(), sid.contiguous(), n,
+            avg)
+
+
+def chain_err(what, f, p, f2, p2):
+    """The max abs error of a chaining kernel's (f, p) against its plain
+    version's; raises unless they are equal."""
+    err = max(int((f - f2).abs().max()), int((p - p2).abs().max()))
+    if not (torch.equal(f, f2) and torch.equal(p, p2)):
+        raise AssertionError("%s: max abs err %d" % (what, err))
+    return err
 
 
 def cuda_ms(fn, reps, warmup=True):
@@ -397,15 +447,28 @@ def phase_kernel_vs_plain():
             else:
                 f, p = kernel()
                 f2, p2 = plain()
-            err = max(int((f - f2).abs().max()), int((p - p2).abs().max()))
-            max_err = max(max_err, err)
-            if not (torch.equal(f, f2) and torch.equal(p, p2)):
-                raise AssertionError("kernel != plain at (%d, %d) %s: max "
-                                     "abs err %d" % (B, N, name, err))
+            max_err = max(max_err, chain_err(
+                "kernel != plain at (%d, %d) %s" % (B, N, name), f, p, f2,
+                p2))
             say(2, "kernel == plain at (B, N) = (%d, %d), %s; max f %d"
                 % (B, N, name, int(f.max())))
-        say(2, "time at (%d, %d), map-ont: kernel %.3f ms, plain %.3f ms"
-            % (B, N, *times[(B, N)]))
+        steps = int(planes[4].max())
+        say(2, "time at (%d, %d), map-ont: kernel %.3f ms, plain %.3f ms; "
+            "largest n %d: %.3f us a step" % (
+                B, N, *times[(B, N)], steps, times[(B, N)][0] * 1e3 / steps))
+    B, n_real, N = PIPELINE_BATCH["chain_v3"]
+    hi, lo, qi, span, _, n, avg = pipeline_batch(B, n_real, N, seed=150)
+    for name, cfg in CONFIGS.items():
+        f, p = chain_v3.chain_scores_v3(hi, lo, qi, span, n, avg, **cfg)
+        f2, p2 = chain_v3.chain_scores_v3_reference(hi, lo, qi, span, n, avg,
+                                                    **cfg)
+        max_err = max(max_err, chain_err(
+            "kernel != plain on the pipeline-shaped batch, %s" % name, f, p,
+            f2, p2))
+    say(2, "kernel == plain on the pipeline-shaped batch (B, N) = (%d, %d): "
+        "%d rows of n %d-%d and %d empty rows, under %s" % (
+            B, N, n_real, int(n[:n_real].min()), int(n.max()), B - n_real,
+            ", ".join(CONFIGS)))
     return times, max_err, work
 
 
@@ -449,9 +512,10 @@ def synth_batch_v2(B, N, seed, n_segs):
 
 def phase_v2_kernel_vs_plain():
     """K2 against its plain version on every contract, shape and setting
-    of V2_*. Returns ({contract: (kernel ms, plain ms)} at the last shape
-    under V2_TIMED's settings, max abs error, the work of the timed
-    (cDNA, 1 segment) call)."""
+    of V2_*, and on a pipeline-shaped batch for each contract. Returns
+    ({contract: (kernel ms, plain ms)} at the last shape under V2_TIMED's
+    settings, max abs error, the work of the timed (cDNA, 1 segment)
+    call)."""
     from mm2tpu_torch.ops import chain_v2
     times, max_err, work = {}, 0, None
     for si, (B, N) in enumerate(V2_SHAPES):
@@ -475,20 +539,35 @@ def phase_v2_kernel_vs_plain():
                 else:
                     f, p = kernel()
                     f2, p2 = plain()
-                err = max(int((f - f2).abs().max()),
-                          int((p - p2).abs().max()))
-                max_err = max(max_err, err)
-                if not (torch.equal(f, f2) and torch.equal(p, p2)):
-                    raise AssertionError(
-                        "K2 != plain at (%d, %d), is_cdna=%s, n_segs=%d, "
-                        "%s: max abs err %d" % (B, N, is_cdna, n_segs, name,
-                                                err))
+                max_err = max(max_err, chain_err(
+                    "K2 != plain at (%d, %d), is_cdna=%s, n_segs=%d, %s"
+                    % (B, N, is_cdna, n_segs, name), f, p, f2, p2))
                 chained = int((p >= 0).sum())
+                steps = int(planes[5].max())
                 say(4, "K2 == plain at (B, N) = (%d, %d), is_cdna=%s, "
                     "n_segs=%d, %s: max f %d, %d anchors chained%s" % (
                         B, N, is_cdna, n_segs, name, int(f.max()), chained,
-                        "; kernel %.3f ms, plain %.3f ms"
-                        % times[(is_cdna, n_segs)] if timed else ""))
+                        "; kernel %.3f ms, plain %.3f ms; largest n %d: "
+                        "%.3f us a step" % (
+                            *times[(is_cdna, n_segs)], steps,
+                            times[(is_cdna, n_segs)][0] * 1e3 / steps)
+                        if timed else ""))
+    B, n_real, N = PIPELINE_BATCH["chain_v2"]
+    for ci, (is_cdna, n_segs) in enumerate(V2_CONTRACTS):
+        planes = pipeline_batch(B, n_real, N, 350 + ci, n_segs, is_cdna)
+        for name, cfg in V2_CONFIGS.items():
+            kw = dict(cfg, is_cdna=is_cdna, n_segs=n_segs)
+            f, p = chain_v2.chain_scores_v2(*planes, **kw)
+            f2, p2 = chain_v2.chain_scores_v2_reference(*planes, **kw)
+            max_err = max(max_err, chain_err(
+                "K2 != plain on the pipeline-shaped batch, is_cdna=%s, "
+                "n_segs=%d, %s" % (is_cdna, n_segs, name), f, p, f2, p2))
+        say(4, "K2 == plain on the pipeline-shaped batch (B, N) = (%d, %d), "
+            "is_cdna=%s, n_segs=%d: %d rows of n %d-%d and %d empty rows, "
+            "under %s" % (B, N, is_cdna, n_segs, n_real,
+                          int(planes[5][:n_real].min()),
+                          int(planes[5].max()), B - n_real,
+                          ", ".join(V2_CONFIGS)))
     return times, max_err, work
 
 
@@ -897,6 +976,7 @@ def phase_main_path(tmp):
         "%s %.3f" % (k, v[0]) for k, v in sorted(stages.items())))
     say(5, "counters: " + ", ".join(
         "%s %d" % (k, v) for k, v in sorted(counters.items())))
+    say(5, "chaining: " + chain_line(stages, counters))
     busy = stages["chain.gpu_busy"][0]
     mapping_wall = wall - stages["index"][0]
     say(5, "card busy %.3f s (chain.gpu_busy) of %.3f s wall: idle share "
@@ -1215,6 +1295,24 @@ def only_k2(phase, what, counts, *also):
         "%s %d" % (k, c[0]) for k, c in counts.items())))
 
 
+def chain_line(stages, counters):
+    """The chaining counters of one --profile run: launches, anchors, the
+    anchors the launches carried with their padding, the launches'
+    serial steps, and the card's time from the first op after each
+    upload to the last before the copy back (chain.gpu_busy)."""
+    launches = counters.get("chain.launches", 0)
+    anchors = counters.get("chain.anchors", 0)
+    padded = counters.get("chain.padded_anchors", 0)
+    steps = counters.get("chain.steps", 0)
+    busy = stages["chain.gpu_busy"][0] if "chain.gpu_busy" in stages else 0.0
+    return ("chain.launches %d, chain.anchors %d, chain.padded_anchors %d "
+            "(%.3f of them real), chain.steps %d (each launch's longest "
+            "row), chain.gpu_busy %.3f s (%.3f ms a launch, %.3f us a step)"
+            % (launches, anchors, padded, anchors / max(padded, 1), steps,
+               busy, busy * 1e3 / max(launches, 1),
+               busy * 1e6 / max(steps, 1)))
+
+
 def report(phase, what, wall, n_reads, stages, counters):
     say(phase, "%s: %d reads in %.3f s wall: %.3f reads/s" % (
         what, n_reads, wall, n_reads / wall))
@@ -1222,6 +1320,8 @@ def report(phase, what, wall, n_reads, stages, counters):
         "%s %.3f" % (k, v[0]) for k, v in sorted(stages.items()))))
     say(phase, "%s counters: %s" % (what, ", ".join(
         "%s %d" % (k, v) for k, v in sorted(counters.items()))))
+    if counters.get("chain.launches"):
+        say(phase, "%s chaining: %s" % (what, chain_line(stages, counters)))
     busy = sum(stages[k][0] for k in ("chain.gpu_busy", "ext.gpu_busy")
                if k in stages)
     say(phase, "%s: card busy %.3f s (chain.gpu_busy + ext.gpu_busy) of "

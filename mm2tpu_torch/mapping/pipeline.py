@@ -275,7 +275,9 @@ def map_frags_batched(mi: MMIndex, frag_seqs: Sequence[Sequence[str]],
     come back: the launch and a non-blocking copy into pinned host
     memory go on the current stream, and a CUDA event tells the host
     when the copy is done. With `--profile` on, CUDA events also time
-    each bucket's chaining on the card (stage `chain.gpu_busy`).
+    each bucket's chaining on the card (stage `chain.gpu_busy`), and
+    `chain.steps` counts the launches' serial DP steps (each launch's
+    longest row: the chaining kernel stops every row at its n).
     Single-segment non-cDNA tasks chain on K1, every other task (read
     pairs, spliced reads) on K2. `chain_fn` replaces the chaining
     function (see `ops.chain_packed.chain_scores_packed`).
@@ -343,6 +345,9 @@ def map_frags_batched(mi: MMIndex, frag_seqs: Sequence[Sequence[str]],
                     profiling.count("chain.anchors",
                                     sum(len(t) for t in tasks))
                     profiling.count("chain.padded_anchors", B * N)
+                    # the launch's serial DP steps: its longest row's n
+                    profiling.count("chain.steps",
+                                    max(len(t) for t in tasks))
                     profiling.count("chain.bytes_up", 16 * B * N + 8 * B)
                 planes = planes_to_torch(*pack_tasks16(tasks, N), dev)
                 busy = None

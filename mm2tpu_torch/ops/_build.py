@@ -82,12 +82,42 @@ def load() -> ctypes.CDLL:
     return bind(ctypes.CDLL(str(so)))
 
 
+def build_variants(src: str, define: str, values, out_dir: Path,
+                   tag: str) -> dict:
+    """Build `csrc/<src>` alone into `out_dir` once for each value of the
+    macro `define` (one nvcc per value, all started together), print each
+    build's ptxas register and spill lines prefixed with `[tag]`, and
+    return {value: bound library}. For scripts that compare builds."""
+    nvcc = _nvcc()
+    sos = {v: out_dir / ("lib%s_%s.so" % (Path(src).stem, v))
+           for v in values}
+    procs = {v: subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, "-D%s=%s" % (define, v), "-shared", "-o",
+         str(so), str(CSRC / src)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for v, so in sos.items()}
+    libs = {}
+    for v, pr in procs.items():
+        _, err = pr.communicate()
+        if pr.returncode != 0:
+            for other in procs.values():
+                other.kill()
+                other.wait()
+            raise RuntimeError("nvcc failed for %s=%s:\n%s" % (define, v,
+                                                                 err))
+        for ln in err.splitlines():
+            if "registers" in ln or "spill" in ln:
+                print("[%s] %s=%s, ptxas: %s" % (tag, define, v, ln.strip()),
+                      flush=True)
+        libs[v] = bind(ctypes.CDLL(str(sos[v])))
+    return libs
+
+
 _vp, _i32 = ctypes.c_void_p, ctypes.c_int
 # the C entry points of csrc/*.cu: argument types (all return an int32
 # cudaError_t)
 SIGNATURES = {
-    "mm2tpu_chain_v3": [_vp] * 7 + [_i32] * 6 + [ctypes.c_float, _i32, _vp],
-    "mm2tpu_chain_v2": [_vp] * 8 + [_i32] * 6 + [ctypes.c_float, _i32, _i32,
+    "mm2tpu_chain_v3": [_vp] * 8 + [_i32] * 6 + [ctypes.c_float, _i32, _vp],
+    "mm2tpu_chain_v2": [_vp] * 9 + [_i32] * 6 + [ctypes.c_float, _i32, _i32,
                                                  _i32, _i32, _vp],
     "mm2tpu_ksw2_extd2": [_vp] * 10 + [_i32] * 20 + [_vp],
     "mm2tpu_ksw2_exts2": [_vp] * 12 + [_i32] * 17 + [_vp],

@@ -12,6 +12,10 @@ is `chain_v3`'s (K1), and both functions here refuse it.
 - `chain_scores_v2`: the wrapper. A CPU tensor goes to the plain version;
   a CUDA tensor launches the Hopper kernel (`mm2tpu_chain_v2`) or raises.
 
+As with `chain_v3`, the kernel reads each row's n and stops there
+(f = span, p = -1 past it: the DP's value on `pack_tasks16`'s pad);
+the plain version scans all N and ignores n.
+
 `launches` counts kernel launches and `reference_calls` counts runs of
 the plain version, so a caller can show which one did the work.
 """
@@ -38,7 +42,9 @@ def chain_scores_v2_reference(hi, lo, qi, span, sid, n, avg, *,
                               iter_cap: int, gap_scale: float, is_cdna: bool,
                               n_segs: int):
     """Plain version. hi/lo/qi/span/sid (B, N) int32, avg (B, 1) float32;
-    `n` is not read (as in the Pallas kernel). Returns (f, p), (B, N)
+    `n` is not read (as in the Pallas kernel): every row runs all N
+    steps. The kernel stops at n, so past n a row must hold
+    `pack_tasks16`'s pad for the two to agree. Returns (f, p), (B, N)
     int32, on the inputs' device."""
     global reference_calls
     _check_contract(is_cdna, n_segs)
@@ -103,7 +109,8 @@ def chain_scores_v2(hi, lo, qi, span, sid, n, avg, *, max_dist_x: int,
     """Chaining scores (f, p), (B, N) int32, under the general contract.
     CPU tensors run the plain version; CUDA tensors launch
     `csrc/chain.cu`'s `mm2tpu_chain_v2` on the current stream (B >= 1,
-    N % 1024 == 0, contiguous int32 planes, float32 avg)."""
+    N % 1024 == 0, contiguous int32 planes, (B, 1) int32 n, float32
+    avg), which stops each row at its n."""
     global launches
     kw = dict(max_dist_x=max_dist_x, max_dist_y=max_dist_y, bw=bw,
               iter_cap=iter_cap, gap_scale=gap_scale, is_cdna=is_cdna,
@@ -113,7 +120,7 @@ def chain_scores_v2(hi, lo, qi, span, sid, n, avg, *, max_dist_x: int,
     if hi.device.type != "cuda":
         raise ValueError("chain_scores_v2: unsupported device %s" % hi.device)
     _check_contract(is_cdna, n_segs)
-    _check_inputs(hi, lo, qi, span, avg, sid=sid)
+    _check_inputs(hi, lo, qi, span, n, avg, sid=sid)
     from . import _build
     lib = _build.load()
     B, N = hi.shape
@@ -124,8 +131,9 @@ def chain_scores_v2(hi, lo, qi, span, sid, n, avg, *, max_dist_x: int,
         stream = torch.cuda.current_stream(hi.device).cuda_stream
         err = lib.mm2tpu_chain_v2(
             hi.data_ptr(), lo.data_ptr(), qi.data_ptr(), span.data_ptr(),
-            sid.data_ptr(), avg.data_ptr(), f.data_ptr(), p.data_ptr(), B, N,
-            max_dist_x, max_dist_y, bw, min(iter_cap, WINDOW),
+            sid.data_ptr(), n.data_ptr(), avg.data_ptr(), f.data_ptr(),
+            p.data_ptr(), B, N, max_dist_x, max_dist_y, bw,
+            min(iter_cap, WINDOW),
             float(gap_scale), int(gap_scale != 1.0), int(exact_log),
             int(bool(is_cdna)), n_segs, stream)
     if err != 0:

@@ -11,6 +11,11 @@ it in full.
 - `chain_scores_v3`: the wrapper. A CPU tensor goes to the plain version;
   a CUDA tensor launches the Hopper kernel or raises.
 
+The kernel reads each row's n and runs the DP for its first n anchors
+only; past n it writes f = span, p = -1, which is what the DP gives on
+`pack_tasks16`'s pad. The plain version scans all N and ignores n; the
+two agree wherever a row's tail past n is that pad.
+
 `launches` counts kernel launches and `reference_calls` counts runs of
 the plain version, so a caller can show which one did the work.
 """
@@ -45,7 +50,9 @@ def chain_scores_v3_reference(hi, lo, qi, span, n, avg, *, max_dist_x: int,
                               max_dist_y: int, bw: int, iter_cap: int,
                               gap_scale: float):
     """Plain version. hi/lo/qi/span (B, N) int32, avg (B, 1) float32;
-    `n` is not read (as in the Pallas kernel). Returns (f, p), (B, N)
+    `n` is not read (as in the Pallas kernel): every row runs all N
+    steps. The kernel stops at n, so past n a row must hold
+    `pack_tasks16`'s pad for the two to agree. Returns (f, p), (B, N)
     int32, on the inputs' device."""
     global reference_calls
     reference_calls += 1
@@ -97,10 +104,10 @@ def chain_scores_v3_reference(hi, lo, qi, span, n, avg, *, max_dist_x: int,
     return f, p
 
 
-def _check_inputs(hi, lo, qi, span, avg, sid=None) -> None:
+def _check_inputs(hi, lo, qi, span, n, avg, sid=None) -> None:
     """What the kernels take: contiguous (B, N) int32 planes (and `sid`
-    for the general contract) with N % 1024 == 0, a float32 avg of B
-    values, all on one device."""
+    for the general contract) with N % 1024 == 0, a contiguous (B, 1)
+    int32 n, a float32 avg of B values, all on one device."""
     dev = hi.device
     if hi.dim() != 2:
         raise ValueError("hi must be (B, N), got %s" % (tuple(hi.shape),))
@@ -118,6 +125,11 @@ def _check_inputs(hi, lo, qi, span, avg, sid=None) -> None:
                              "on %s, got %s %s on %s" % (
                                  name, B, N, dev, t.dtype, tuple(t.shape),
                                  t.device))
+    if n.device != dev or n.dtype != torch.int32 or \
+            tuple(n.shape) != (B, 1) or not n.is_contiguous():
+        raise ValueError("n must be a contiguous (%d, 1) int32 tensor on "
+                         "%s, got %s %s on %s" % (B, dev, n.dtype,
+                                                  tuple(n.shape), n.device))
     if avg.device != dev or avg.dtype != torch.float32 or \
             avg.numel() != B or not avg.is_contiguous():
         raise ValueError("avg must be a contiguous (%d, 1) float32 tensor on "
@@ -129,8 +141,8 @@ def chain_scores_v3(hi, lo, qi, span, n, avg, *, max_dist_x: int,
                     gap_scale: float):
     """Chaining scores (f, p), (B, N) int32. CPU tensors run the plain
     version; CUDA tensors launch `csrc/chain.cu`'s `mm2tpu_chain_v3` on
-    the current stream
-    (B >= 1, N % 1024 == 0, contiguous int32 planes, float32 avg)."""
+    the current stream (B >= 1, N % 1024 == 0, contiguous int32 planes,
+    (B, 1) int32 n, float32 avg), which stops each row at its n."""
     global launches
     kw = dict(max_dist_x=max_dist_x, max_dist_y=max_dist_y, bw=bw,
               iter_cap=iter_cap, gap_scale=gap_scale)
@@ -138,7 +150,7 @@ def chain_scores_v3(hi, lo, qi, span, n, avg, *, max_dist_x: int,
         return chain_scores_v3_reference(hi, lo, qi, span, n, avg, **kw)
     if hi.device.type != "cuda":
         raise ValueError("chain_scores_v3: unsupported device %s" % hi.device)
-    _check_inputs(hi, lo, qi, span, avg)
+    _check_inputs(hi, lo, qi, span, n, avg)
     from . import _build
     lib = _build.load()
     B, N = hi.shape
@@ -148,9 +160,9 @@ def chain_scores_v3(hi, lo, qi, span, n, avg, *, max_dist_x: int,
         stream = torch.cuda.current_stream(hi.device).cuda_stream
         err = lib.mm2tpu_chain_v3(
             hi.data_ptr(), lo.data_ptr(), qi.data_ptr(), span.data_ptr(),
-            avg.data_ptr(), f.data_ptr(), p.data_ptr(), B, N, max_dist_x,
-            max_dist_y, bw, min(iter_cap, WINDOW), float(gap_scale),
-            int(gap_scale != 1.0), stream)
+            n.data_ptr(), avg.data_ptr(), f.data_ptr(), p.data_ptr(), B, N,
+            max_dist_x, max_dist_y, bw, min(iter_cap, WINDOW),
+            float(gap_scale), int(gap_scale != 1.0), stream)
     if err != 0:
         raise RuntimeError("chain_v3 kernel launch failed: cudaError %d"
                            % err)

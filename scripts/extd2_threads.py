@@ -19,10 +19,8 @@ card's name and power limit.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import functools
 import json
-import subprocess
 import sys
 import tempfile
 from pathlib import Path
@@ -42,29 +40,6 @@ from mm2tpu_torch.ops import ksw2_extd2 as X  # noqa: E402
 SHAPES = [("B64_2000-5000_w500", 64, 2000, 5000, 500, 202),
           ("B64_2000-5000_w751", 64, 2000, 5000, 751, 202),
           ("B16_200-800_w751", 16, 200, 800, 751, 7)]
-
-
-def build_all(threads, out: Path):
-    """One nvcc per block size, all started together."""
-    nvcc = _build._nvcc()
-    src = _build.CSRC / "ksw2_extd2.cu"
-    jobs = {n: [nvcc, *_build.NVCC_FLAGS, "-DEXTD2_THREADS=%d" % n,
-                "-shared", "-o", str(out / ("libextd2_%d.so" % n)),
-                str(src)] for n in threads}
-    procs = {n: subprocess.Popen(c, stdout=subprocess.PIPE,
-                                 stderr=subprocess.PIPE, text=True)
-             for n, c in jobs.items()}
-    libs = {}
-    for n, pr in procs.items():
-        _, err = pr.communicate()
-        if pr.returncode != 0:
-            raise RuntimeError("nvcc failed for %d threads:\n%s" % (n, err))
-        for ln in err.splitlines():
-            if "registers" in ln or "spill" in ln:
-                print("[extd2_threads] %d threads, ptxas: %s"
-                      % (n, ln.strip()), flush=True)
-        libs[n] = _build.bind(ctypes.CDLL(str(out / ("libextd2_%d.so" % n))))
-    return libs
 
 
 def stamp_numbers(lens, out, stamps):
@@ -89,7 +64,8 @@ def main(argv=None) -> int:
     mat = cs.ext_matrix()
     results = {}
     with tempfile.TemporaryDirectory(prefix="extd2_threads_") as d:
-        libs = build_all(threads, Path(d))
+        libs = _build.build_variants("ksw2_extd2.cu", "EXTD2_THREADS", threads,
+                                     Path(d), "extd2_threads")
         load = _build.load
         try:
             for name, B, lo, hi, w, seed in SHAPES:

@@ -163,10 +163,14 @@ def test_uniseg_contract_is_refused(batches, fn):
 
 
 @pytest.mark.parametrize("bad", ["ragged_n", "sid_int64", "sid_strided",
-                                 "sid_shape", "avg_f64"])
+                                 "sid_shape", "avg_f64", "n_shape",
+                                 "n_int64", "n_device"])
 def test_kernel_input_checks(batches, bad):
+    """What the kernel cannot take raises before any launch, the n plane
+    (which the kernel reads to stop each row) included."""
     _, arrays = batches[2]
     hi, lo, qi, span, sid, n, avg = to_torch(arrays)
+    chain_v3._check_inputs(hi, lo, qi, span, n, avg, sid=sid)
     if bad == "ragged_n":
         hi, lo, qi, span, sid = (x[:, :1000].contiguous()
                                  for x in (hi, lo, qi, span, sid))
@@ -176,10 +180,16 @@ def test_kernel_input_checks(batches, bad):
         sid = torch.cat([sid, sid], dim=1)[:, ::2]
     elif bad == "sid_shape":
         sid = sid[:4].contiguous()
-    else:
+    elif bad == "avg_f64":
         avg = avg.to(torch.float64)
+    elif bad == "n_shape":
+        n = n[:4].contiguous()
+    elif bad == "n_int64":
+        n = n.to(torch.int64)
+    else:
+        n = n.to("meta")
     with pytest.raises(ValueError):
-        chain_v3._check_inputs(hi, lo, qi, span, avg, sid=sid)
+        chain_v3._check_inputs(hi, lo, qi, span, n, avg, sid=sid)
 
 
 @pytest.mark.gpu

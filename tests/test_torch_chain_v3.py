@@ -100,10 +100,14 @@ def test_wrapper_rejects_other_devices(batch):
         chain_v3.chain_scores_v3(*t, **CONFIGS[0])
 
 
-@pytest.mark.parametrize("bad", ["ragged_n", "int64", "strided", "avg_f64"])
+@pytest.mark.parametrize("bad", ["ragged_n", "int64", "strided", "avg_f64",
+                                 "n_shape", "n_int64", "n_device"])
 def test_kernel_input_checks(batch, bad):
+    """What the kernel cannot take raises before any launch, the n plane
+    (which the kernel reads to stop each row) included."""
     _, arrays = batch
     hi, lo, qi, span, n, avg = to_torch(arrays)
+    chain_v3._check_inputs(hi, lo, qi, span, n, avg)
     if bad == "ragged_n":
         hi, lo, qi, span = (x[:, :1500].contiguous()
                             for x in (hi, lo, qi, span))
@@ -111,10 +115,16 @@ def test_kernel_input_checks(batch, bad):
         lo = lo.to(torch.int64)
     elif bad == "strided":
         qi = torch.cat([qi, qi], dim=1)[:, ::2]
-    else:
+    elif bad == "avg_f64":
         avg = avg.to(torch.float64)
+    elif bad == "n_shape":
+        n = n.reshape(-1)
+    elif bad == "n_int64":
+        n = n.to(torch.int64)
+    else:
+        n = n.to("meta")
     with pytest.raises(ValueError):
-        chain_v3._check_inputs(hi, lo, qi, span, avg)
+        chain_v3._check_inputs(hi, lo, qi, span, n, avg)
 
 
 @pytest.mark.gpu

@@ -1,6 +1,7 @@
-"""What the CPU tests of the port's two ksw2 kernels (K3,
-csrc/ksw2_extd2.cu, and K4, csrc/ksw2_exts2.cu) share, with tests of its
-own:
+"""What the CPU tests of the port's CUDA sources share (the two ksw2
+kernels K3, csrc/ksw2_extd2.cu, and K4, csrc/ksw2_exts2.cu, in the ksw2
+tests; the chaining kernel K1/K2, csrc/chain.cu, in
+tests/test_torch_chain_shim.py), with tests of its own:
 
 - `CUDA_SHIM` and `build_on_cpu`: a CPU stand-in for the CUDA that the
   kernels use, so that g++ builds a kernel's own source here and ctypes
@@ -25,15 +26,19 @@ from mm2tpu_torch.ops import _build
 # One fiber per CUDA thread on the calling thread (so the tests' time does
 # not depend on what else runs on the machine), blocks in series, a
 # barrier for __syncthreads and for the two halves of a warp reduction,
-# a static array for the dynamic shared memory.
+# a static array for the dynamic shared memory, and the integer and float
+# intrinsics of the chaining kernel.
 CUDA_SHIM = r"""
 #pragma once
+#include <setjmp.h>
 #include <ucontext.h>
 #include <algorithm>
 #include <chrono>
+#include <climits>
 #include <cstddef>
 #include <cstdint>
 #include <cstdlib>
+#include <cstring>
 #include <functional>
 #include <numeric>
 #include <random>
@@ -51,6 +56,23 @@ inline dim3_ threadIdx, blockIdx;  // the running fiber's
 struct alignas(8) int2 { int x, y; };
 inline int2 make_int2(int a, int b) { return int2{a, b}; }
 template <class T> inline T __ldg(const T* p) { return *p; }
+inline int __clz(int v) {
+  return v == 0 ? 32 : __builtin_clz(static_cast<unsigned>(v));
+}
+inline int __float_as_int(float f) {
+  int i;
+  std::memcpy(&i, &f, sizeof i);
+  return i;
+}
+inline float __int2float_rn(int v) { return static_cast<float>(v); }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline int __float2int_rz(float f) {  // saturating, NaN -> 0, as on the card
+  if (f != f) return 0;
+  if (f >= 2147483648.0f) return INT_MAX;
+  if (f <= -2147483648.0f) return INT_MIN;
+  return static_cast<int>(f);
+}
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
@@ -60,9 +82,13 @@ template <class F> inline cudaError_t cudaFuncSetAttribute(F, int, int) {
 }
 // Each CUDA thread of a block is a fiber on the calling thread; a fiber
 // runs until it waits at a barrier, and the scheduler resumes the fibers
-// in a new seeded random order on every pass. A pass in which no fiber
-// reached a barrier or its end is a deadlock (threads waiting at
-// different barriers): the launch stops and reports an error.
+// in a new seeded random order on every pass. Each warp sits a pass out
+// with probability kSitOut%, so that a warp can fall several of its own
+// barriers behind the others (a race that needs a slow warp shows). 64
+// passes in a row in which no fiber reached a barrier or its end are a
+// deadlock (threads waiting at different barriers): the launch stops and
+// reports an error.
+constexpr int kSitOut = 50;
 enum { cudaErrorLaunchFailure = 719 };
 inline int g_error = cudaSuccess;
 inline unsigned long g_progress;
@@ -71,16 +97,23 @@ inline cudaError_t cudaGetLastError() {
   g_error = cudaSuccess;
   return e;
 }
+// A fiber starts on its own stack through makecontext/swapcontext; after
+// that every switch is a _setjmp/_longjmp pair, which saves no signal mask
+// (swapcontext makes a system call for it on every switch).
 struct Fiber {
   ucontext_t ctx;
+  jmp_buf jb;
   std::vector<char> stack;
-  bool done = false;
+  bool started = false, done = false;
 };
 inline std::vector<Fiber>* g_fibers;
 inline ucontext_t g_sched;
+inline jmp_buf g_sched_jb;
 inline int g_cur;
 inline const std::function<void()>* g_body;
-inline void shim_yield() { swapcontext(&(*g_fibers)[g_cur].ctx, &g_sched); }
+inline void shim_yield() {
+  if (!_setjmp((*g_fibers)[g_cur].jb)) _longjmp(g_sched_jb, 1);
+}
 struct Barrier {
   int n, count = 0;
   unsigned long gen = 0;
@@ -116,7 +149,7 @@ inline void shim_fiber() {
   (*g_body)();
   ++g_progress;
   (*g_fibers)[g_cur].done = true;
-  swapcontext(&(*g_fibers)[g_cur].ctx, &g_sched);
+  _longjmp(g_sched_jb, 1);
 }
 inline void shim_launch(int nb, int nt, const std::function<void()>& f) {
   g_body = &f;
@@ -138,18 +171,25 @@ inline void shim_launch(int nb, int nt, const std::function<void()>& f) {
     }
     std::vector<int> order(nt);
     std::iota(order.begin(), order.end(), 0);
-    for (int left = nt; left > 0;) {
+    std::vector<char> out((nt + 31) / 32);
+    for (int left = nt, idle = 0; left > 0;) {
       const unsigned long before = g_progress;
       std::shuffle(order.begin(), order.end(), rng);
+      for (auto& o : out) o = static_cast<int>(rng() % 100) < kSitOut;
       for (int t : order) {
-        if (fibers[t].done) continue;
+        if (fibers[t].done || out[t >> 5]) continue;
         g_cur = t;
         threadIdx.x = t;
         blockIdx.x = b;
-        swapcontext(&g_sched, &fibers[t].ctx);
+        if (!_setjmp(g_sched_jb)) {
+          if (fibers[t].started) _longjmp(fibers[t].jb, 1);
+          fibers[t].started = true;
+          swapcontext(&g_sched, &fibers[t].ctx);
+        }
         if (fibers[t].done) --left;
       }
-      if (left > 0 && g_progress == before) {
+      idle = g_progress == before ? idle + 1 : 0;
+      if (left > 0 && idle >= 64) {
         g_error = cudaErrorLaunchFailure;
         return;
       }
@@ -159,26 +199,32 @@ inline void shim_launch(int nb, int nt, const std::function<void()>& f) {
 """
 
 
-def build_on_cpu(src: str, out_dir: Path, defines=()) -> ctypes.CDLL:
-    """Build CUDA source text `src` (one kernel launched as `name<<<B,
-    THREADS, smem, stream>>>(...)`, dynamic shared memory `dsmem`, the
-    `%globaltimer` stamps) with g++ against CUDA_SHIM into `out_dir`,
-    load it and bind its entry points as ops/_build.py does."""
+def build_on_cpu(src: str, out_dir: Path, defines=(),
+                 stamped=True) -> ctypes.CDLL:
+    """Build CUDA source text `src` (one kernel, or a template of one,
+    launched as `name<<<B, THREADS, smem, stream>>>(...)` with any shared
+    memory size argument; when `stamped`, with exactly one declaration of
+    the dynamic shared memory `dsmem` and one `%globaltimer` stamp line,
+    else with neither) with g++ against CUDA_SHIM into `out_dir`, load it
+    and bind its entry points as ops/_build.py does."""
+    assert src.count("#include <cuda_runtime.h>") == 1
+    src = src.replace("#include <cuda_runtime.h>", '#include "cuda_shim.h"')
     for old, new in (
-            ("#include <cuda_runtime.h>", '#include "cuda_shim.h"'),
             ("extern __shared__ __align__(16) unsigned char dsmem[];",
              "alignas(16) static unsigned char dsmem[232448];"),
             ('asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));',
              "t = shim_timer();")):
-        assert src.count(old) == 1, old
+        assert src.count(old) == int(stamped), old
         src = src.replace(old, new)
-    src, n = re.subn(r"(\w+)<<<B, THREADS, smem, stream>>>\(([^;]*)\);",
-                     r"shim_launch(B, THREADS, [&]() { \1(\2); });", src)
+    src, n = re.subn(
+        r"(\w+(?:<\w+>)?)<<<B, THREADS, \w+, stream>>>\(([^;]*)\);",
+        r"shim_launch(B, THREADS, [&]() { \1(\2); });", src)
     assert n == 1
     (out_dir / "cuda_shim.h").write_text(CUDA_SHIM)
     (out_dir / "k.cpp").write_text(src)
     so = out_dir / "libkernel_shim.so"
     subprocess.run(["g++", "-std=c++20", "-O1", "-fno-strict-aliasing",
+                    "-ffp-contract=off", "-U_FORTIFY_SOURCE",
                     *("-D" + d for d in defines), "-shared", "-fPIC",
                     "-o", str(so), str(out_dir / "k.cpp")],
                    check=True, cwd=out_dir)
