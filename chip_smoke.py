@@ -1,21 +1,28 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's batch paths once on one CUDA card: -x map-ont
-(PAF and SAM), -x sr read pairs and -x splice spliced reads (PAF, and
-SAM and PAF with CIGARs through the splice kernel).
+(PAF, host-seeded and device-seeded, and SAM), -x sr read pairs and -x
+splice spliced reads (PAF, and SAM and PAF with CIGARs through the splice
+kernel).
 
-Run from the root of a checkout, with no arguments, for the full gate:
+Run from the root of a checkout, with no arguments, for the gate (every
+phase but the deep parity runs, 7 and 10):
 
     python3 chip_smoke.py
+
+with `--deep` for every phase, the deep parity runs included:
+
+    python3 chip_smoke.py --deep
 
 or with `--phases LIST` (for example `--phases 1,3` to build and try
 the extd2 kernel, `--phases 1,3,5,6` to add the map-ont SAM path,
 `--phases 1,3b,9` for the splice kernel and the spliced-read path,
-`--phases 1,2,4` for the chaining kernel's K1 and K2) to run
+`--phases 1,2,4` for the chaining kernel's K1 and K2, `--phases 1,5,5s`
+for the seeding kernels K5 and K6 and the device-seeded path) to run
 phase 0, the named phases and phase 11's import check only; the kernel
 JSON line then lists only the kernels whose phase ran (launches null
-where their path's phase did not run). Phase 6 needs 5, 7 needs 5 and 6,
-and 10 needs 8 and 9: a list that names one without the other is
-refused. Phases 8 and 9 generate the genome of phase 5 themselves.
+where their path's phase did not run). Phases 5s and 6 need 5, 7 needs
+5 and 6, and 10 needs 8 and 9: a list that names one without the other
+is refused. Phases 8 and 9 generate the genome of phase 5 themselves.
 
 Phases (any failure exits non-zero; no phase's failure is caught):
   0. the card's name, power limit and SM clock; no CUDA device -> error
@@ -65,6 +72,17 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      cuda` on a seeded 48 Mb genome with 1000 ONT-like reads; >= 95% of
      the reads must map, and only K1 may have chained (its launches,
      anchors, padded anchors and card time from the chain.* counters)
+ 5s. device seeding on phase 5's genome and reads: (i) the index probe K5
+     and the anchor build K6 (mm2tpu_torch/csrc/seed.cu) against their
+     plain versions on the card, on the full-size index and every read in
+     the contract bucketed as the path buckets it: (start, cnt) of every
+     count probe, the sorted anchors and n of every fused dispatch, and
+     K1's f and p on them for the dispatches of the smallest N (up to
+     SEED_PLAIN_STEPS plain steps) all equal; K5, K6, the sort step,
+     torch.searchsorted and torch.sort timed at the largest dispatch;
+     (ii) `--seed-backend gpu`: its PAF byte-identical to phase 5's, only
+     K5, K6 and K1 launched, with the seed.* counters, seed.gpu_busy,
+     chain.gpu_busy and the idle share
   6. the map-ont SAM path: the same reads with `-a --align-backend gpu
      --align-tpu-min-mat 1`, every extension fill on K3 (the flushes'
      serial rows ext.d2_rows, the wide fills ext.d2_wide, K3's card time
@@ -72,7 +90,7 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      stamps, ext.d2_kernel), then with `--align-backend host` (the
      native extension): the SAMs must be byte-identical without @PG, and
      only the kernels may have run
-  7. the first 60 reads of at most 8 kb mapped again through the PAF
+  7. (deep) the first 60 reads of at most 8 kb mapped again through the PAF
      path with the plain chaining on CUDA tensors, and the first 20 of
      them through the SAM path with the plain extd2 on CUDA tensors:
      their PAF and SAM lines must be byte-identical to the kernels'
@@ -91,11 +109,11 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      to SAM with `--align-backend host` (byte-identical without @PG), and
      the first 250 to PAF with CIGARs (`-c`) through K4; >= 90% of the
      reads mapped
- 10. the first 500 pairs and the first 10 spliced reads mapped again with
-     the plain chaining of both contracts on CUDA tensors: their PAF
-     lines must be byte-identical to the kernels'; the first 2 spliced
-     reads through the SAM path with the plain exts2 on CUDA tensors:
-     their SAM records must be byte-identical to K4's
+ 10. (deep) the first 500 pairs and the first 10 spliced reads mapped
+     again with the plain chaining of both contracts on CUDA tensors:
+     their PAF lines must be byte-identical to the kernels'; the first 2
+     spliced reads through the SAM path with the plain exts2 on CUDA
+     tensors: their SAM records must be byte-identical to K4's
  11. no module of jax or of the JAX package loaded; a JSON line per
      kernel (times, launches, bound), the card's name and power limit,
      then {"ok": true, "device": {...}} last
@@ -126,8 +144,8 @@ REPO = Path(__file__).resolve().parent
 DEVICE = "cuda"
 WORKLOAD = dict(genome_mb=48, n_reads=1000, seed=0)
 MIN_MAPPED = 0.95
-# map-ont reads mapped again through the plain versions, few enough that
-# the whole script stays near 800 s of its 1200 s limit
+# map-ont reads mapped again through the plain versions (phase 7), few
+# enough that the script with --deep stays near 900 s of its 1200 s limit
 PARITY_READS, PARITY_MAX_LEN = 60, 8000
 SAM_READS = 1000          # reads of the SAM path (all of the workload)
 EXT_PARITY_READS = 20     # of the parity reads, through the plain extd2
@@ -217,6 +235,16 @@ MIN_MAPPED_SR_SPLICE = 0.90
 # later designs compare) and a DP cell in csrc/ksw2_extd2.cu, counted
 # from the source.
 SMS, INT32_LANES, HBM_BYTES_S = 132, 64, 3.35e12
+# csrc/seed.cu, counted from the source: a step of K5's search (the key's
+# load and address, the 64-bit compare, two selects, the halving), and
+# K6's work for a slot (the search of the tile's scanned counts, the pos
+# load, the strand test, x, y_pos, the sort key and y, two stores) and
+# for a minimizer (its loads, the kept test, its part of the scan)
+OPS_PER_PROBE_STEP, OPS_PER_SLOT, OPS_PER_MINIMIZER = 10, 70, 25
+# phase 5s holds K1 against its plain version on the seeded anchors of the
+# path's dispatches with the smallest N, up to this many serial steps of
+# the plain version in all (~0.5 ms a step on the card: ~20 s)
+SEED_PLAIN_STEPS = 40960
 OPS_PER_CANDIDATE = {"chain_v3": 32, "chain_v2": 45}
 OPS_PER_CELL = 50
 # a K4 cell in csrc/ksw2_exts2.cu: the score refresh, seven state and
@@ -983,7 +1011,203 @@ def phase_main_path(tmp):
         "%.3f; of the %.3f s after the index build: idle share %.3f"
         % (busy, wall, 1 - busy / wall, mapping_wall,
            1 - busy / mapping_wall))
-    return ref, reads, lines, launches
+    return ref, reads, lines, launches, counters
+
+
+def tensors_equal(what, got, want):
+    """Raises unless each pair of tensors is equal (dtype and shape too);
+    returns the max abs error, 0."""
+    for k, (g, w) in enumerate(zip(got, want)):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError("%s: output %d is %s %s, want %s %s" % (
+                what, k, g.dtype, tuple(g.shape), w.dtype, tuple(w.shape)))
+        if not torch.equal(g, w):
+            d = (g.to(torch.float64) - w.to(torch.float64)).abs().max()
+            raise AssertionError("%s: output %d differs, max abs err %g"
+                                 % (what, k, float(d)))
+    return 0
+
+
+def phase_seed_kernels(tmp, ref, reads, clock):
+    """Phase 5s (i): K5 and K6 against their plain versions on the card,
+    on phase 5's index at full size and every eligible read's minimizers
+    bucketed as the path buckets them (`mapping/pipeline.py`'s helpers):
+    every count probe's (start, cnt), every fused dispatch's sorted
+    anchors and n, and f and p of K1 on them for the dispatches of the
+    smallest N within SEED_PLAIN_STEPS; then each timed at the largest
+    dispatch, with the sort step, torch.searchsorted and torch.sort.
+    Returns ({"seed_probe": ..., "seed_build": ...} of (ms, plain ms,
+    library ms, work, max abs err), the reads outside the contract and
+    the reads over the largest bucket)."""
+    from mm2tpu_torch import cli
+    from mm2tpu_torch.mapping import pipeline as pl
+    from mm2tpu_torch.ops import chain_v3
+    from mm2tpu_torch.ops import seed_device as sd
+    t0 = time.perf_counter()
+    io, mo = cli.set_opt(None)
+    io, mo = cli.set_opt("map-ont", io, mo)
+    mi = next(cli.index_parts(ref, io, n_threads=3))
+    cli.mapopt_update(mo, mi)
+    index = sd.prepare_index_device(mi, DEVICE)
+    keys, start, cnt, pos = (index[k] for k in ("keys", "start", "cnt",
+                                                "pos"))
+    torch.cuda.synchronize()
+    ctxs, names, outside = {}, {}, []
+    for i, (name, seq) in enumerate(read_fasta(reads)):
+        ctx = pl._prepare(mi, [seq], mo, name, seed_hits=False)
+        if isinstance(ctx, pl.FragResult):
+            continue
+        if pl._seed_device_eligible(mo, ctx):
+            ctxs[i], names[i] = ctx, name
+        else:
+            outside.append(name)
+    idxs = sorted(ctxs)
+    mid_occ = int(mo.mid_occ)
+    prep = {i: sd.split_query_minimizers(ctxs[i].mv) for i in idxs}
+    say("5s", "index on the card: %d keys, %d positions (%.1f MB); %d reads "
+        "in the contract, %d outside it; mid_occ %d; %.3f s" % (
+            keys.numel(), pos.numel(),
+            sum(t.numel() * t.element_size() for t in index.values()) / 1e6,
+            len(idxs), len(outside), mid_occ, time.perf_counter() - t0))
+    max_err, n_q, cnts = 0, 0, {}
+    probes = pl._probe_chunks(ctxs, idxs)
+    for M, chunk, B in probes:
+        q = np.full((B, M), sd.PAD_Q, np.int64)
+        for r, i in enumerate(chunk):
+            q[r, :len(prep[i][0])] = prep[i][0]
+        q = torch.from_numpy(q).to(DEVICE)
+        got = sd.probe_counts(keys, start, cnt, q)
+        max_err = max(max_err, tensors_equal(
+            "K5 != plain at (%d, %d)" % (B, M), got,
+            sd.probe_counts_reference(keys, start, cnt, q)))
+        c = got[1].cpu().numpy()
+        for r, i in enumerate(chunk):
+            cnts[i] = c[r, :len(ctxs[i].mv)]
+        n_q += B * M
+    say("5s", "K5 == plain on the %d count probes' %d queries (start and "
+        "cnt)" % (len(probes), n_q))
+    meta = {i: pl._seed_meta(prep[i], cnts[i], mid_occ) for i in idxs}
+    plan, big = pl._chain_chunks(ctxs, idxs, meta)
+    budget, with_k1 = SEED_PLAIN_STEPS, set()
+    for k in sorted(range(len(plan)), key=lambda k: plan[k][0][1]):
+        if plan[k][0][1] <= budget:
+            with_k1.add(k)
+            budget -= plan[k][0][1]
+    iter_cap = min(1024, mo.max_chain_iter)
+    anchors = 0
+    for k, ((M, N, gap_ref, gap_qry), chunk, B) in enumerate(plan):
+        planes = [torch.from_numpy(a).to(DEVICE)
+                  for a in pl._seed_planes(prep, ctxs, meta, chunk, B, M)]
+        what = "dispatch %d, (B, M, N) = (%d, %d, %d)" % (k, B, M, N)
+        if k in with_k1:
+            kw = dict(N=N, mid_occ=mid_occ, max_dist_x=gap_ref,
+                      max_dist_y=gap_qry, bw=mo.bw, iter_cap=iter_cap,
+                      gap_scale=float(mo.chain_gap_scale))
+            got = sd.seed_chain(index, *planes, **kw)
+            want = sd.seed_chain_plain(index, *planes, **kw)
+            n = got[6]
+        else:
+            got = sd.seed_anchors(index, *planes[:4], N=N, mid_occ=mid_occ)
+            want = sd.seed_anchors_reference(index, *planes[:4], N=N,
+                                             mid_occ=mid_occ)
+            n = got[5]
+        max_err = max(max_err, tensors_equal("K6 != plain, " + what, got,
+                                             want))
+        totals = [meta[i][2] for i in chunk]
+        if n[:len(chunk), 0].tolist() != totals or int(n[len(chunk):].sum()):
+            raise AssertionError("%s: n %s, the counts give %s" % (
+                what, n[:, 0].tolist(), totals))
+        anchors += sum(totals)
+    say("5s", "K6 + sort == plain on all %d fused dispatches (%d anchors: "
+        "sorted anchors and n), and K1 == plain on the anchors of the %d "
+        "of smallest N (f, p; %d plain steps); %d reads over the largest "
+        "bucket" % (len(plan), anchors, len(with_k1),
+                    SEED_PLAIN_STEPS - budget, len(big)))
+    # timed at the largest dispatch
+    (M, N, gap_ref, gap_qry), chunk, B = max(
+        plan, key=lambda job: (job[0][1], job[0][0], len(job[1])))
+    q, qpos, qyhi, qlen, _ = (torch.from_numpy(a).to(DEVICE) for a in
+                              pl._seed_planes(prep, ctxs, meta, chunk, B, M))
+    k5_ms, (s, c) = cuda_ms(lambda: sd.probe_counts(keys, start, cnt, q), 20)
+    k5_plain, _ = cuda_ms(
+        lambda: sd.probe_counts_reference(keys, start, cnt, q), 3)
+    k5_lib, _ = cuda_ms(lambda: torch.searchsorted(keys, q), 20)
+    build = functools.partial(sd.build_anchors, s, c, qpos, qyhi, qlen, pos,
+                              N=N, mid_occ=mid_occ)
+    k6_ms, (key, y, n) = cuda_ms(build, 20)
+    k6_plain, _ = cuda_ms(functools.partial(
+        sd.build_anchors_reference, s, c, qpos, qyhi, qlen, pos, N=N,
+        mid_occ=mid_occ), 3)
+    sort_ms, _ = cuda_ms(lambda: sd.sort_anchors(key, y, n), 20)
+    lib_sort, _ = cuda_ms(lambda: torch.sort(key, dim=1, stable=True), 20)
+    total = int(n.sum())
+    steps = max(1, int(np.ceil(np.log2(keys.numel() + 1))))
+    # K5's bytes: each query read and its (start, cnt) written, and what
+    # its search must read at least: the key it ends on and, on a hit,
+    # that key's start and cnt (not the whole index: a search reads
+    # log2(keys) of them)
+    k5_work = (24 * q.numel() + 8 * int((c > 0).sum()),
+               OPS_PER_PROBE_STEP * steps * q.numel())
+    k6_work = (16 * B * M + 4 * B + 8 * total + 16 * B * N + 4 * B,
+               OPS_PER_SLOT * total + OPS_PER_MINIMIZER * B * M)
+    say("5s", "timed at the largest dispatch (B, M, N) = (%d, %d, %d), %d "
+        "anchors: K5 %.3f ms (plain %.3f, torch.searchsorted %.3f; bound "
+        "%.4f ms, %s), K6 %.3f ms (plain %.3f; bound %.4f ms, %s), sort "
+        "step %.3f ms (torch.sort %.3f ms)" % (
+            B, M, N, total, k5_ms, k5_plain, k5_lib,
+            *bound(*k5_work, clock), k6_ms, k6_plain,
+            *bound(*k6_work, clock), sort_ms, lib_sort))
+    return ({"seed_probe": (k5_ms, k5_plain, k5_lib, k5_work, max_err),
+             "seed_build": (k6_ms, k6_plain, lib_sort, k6_work, max_err)},
+            outside, [names[i] for i in big])
+
+
+def phase_seed_path(tmp, ref, reads, lines, ph5_counters, why):
+    """Phase 5s (ii): map-ont PAF with --seed-backend gpu, byte-identical
+    to phase 5's host-seeded PAF; only K5, K6 and K1 launched, no plain
+    version. Returns the launches of K5 and K6."""
+    paf = os.path.join(tmp, "seed_gpu.paf")
+    wall, counts, stages, counters = drive(
+        ["-x", "map-ont", "--seed-backend", "gpu", "--device", DEVICE, "-o",
+         paf, ref, reads])
+    want_on = ("chain_v3", "seed_probe", "seed_build")
+    for k, (launches, plain) in counts.items():
+        if plain or (launches > 0) != (k in want_on):
+            raise AssertionError("seeded path: launches/plain-version calls "
+                                 "%s" % counts)
+    with open(paf) as fh:
+        got = fh.read().splitlines()
+    if got != lines:
+        raise AssertionError("PAF with --seed-backend gpu differs from the "
+                             "host-seeded PAF of phase 5")
+    mapped = {ln.split("\t", 1)[0] for ln in got if ln}
+    n_reads = WORKLOAD["n_reads"]
+    if len(mapped) < MIN_MAPPED * n_reads or \
+            counters.get("seed.launches", 0) <= 0:
+        raise AssertionError("seeded path: %d reads mapped, seed.launches "
+                             "%s" % (len(mapped), counters.get(
+                                 "seed.launches")))
+    say("5s", "PAF with --seed-backend gpu (%d lines, %d of %d reads mapped) "
+        "is byte-identical to phase 5's host-seeded PAF; launches %s; "
+        "plain-version calls 0" % (len(got), len(mapped), n_reads, ", ".join(
+            "%s %d" % (k, c[0]) for k, c in counts.items())))
+    report("5s", "map-ont PAF, --seed-backend gpu", wall, n_reads, stages,
+           counters)
+    seed_busy = stages["seed.gpu_busy"][0]
+    chain_busy = stages["chain.gpu_busy"][0]
+    say("5s", "seeding: stages %s; seed.gpu_busy %.3f s, chain.gpu_busy "
+        "%.3f s; seed.bytes_up %d (%.3f B a seeded anchor) against phase "
+        "5's chain.bytes_up %d (16 B an anchor); seed.bytes_down %d; "
+        "seed.host_frags %d%s" % (
+            ", ".join("%s %.3f" % (k, v[0]) for k, v in sorted(stages.items())
+                      if k.startswith("seed")), seed_busy, chain_busy,
+            counters["seed.bytes_up"],
+            counters["seed.bytes_up"] / max(counters["seed.anchors"], 1),
+            ph5_counters["chain.bytes_up"], counters["seed.bytes_down"],
+            counters.get("seed.host_frags", 0),
+            "" if not counters.get("seed.host_frags") else
+            " (outside the contract: %s; over the largest bucket: %s)" % why))
+    return counts["seed_probe"][0], counts["seed_build"][0]
 
 
 def read_fasta(path):
@@ -1268,14 +1492,18 @@ def drive(argv, profile=True, **main_kw):
     (wall s, {kernel: (launches, plain calls)}, stage seconds, counters)."""
     from mm2tpu_torch import cli
     from mm2tpu_torch.utils import profiling
+    from mm2tpu_torch.ops import seed_device as sd
     mods = chain_counts()
     for m in mods.values():
         m.launches = m.reference_calls = 0
+    sd.reset_counts()
     t0 = time.perf_counter()
     rc = cli.main(argv + (["--profile"] if profile else []), **main_kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {k: (m.launches, m.reference_calls) for k, m in mods.items()}
+    for k in ("probe", "build"):
+        counts["seed_" + k] = (sd.launches[k], sd.reference_calls[k])
     stages, counters = profiling.snapshot(), dict(profiling.counters)
     profiling.disable()
     if rc != 0:
@@ -1322,9 +1550,9 @@ def report(phase, what, wall, n_reads, stages, counters):
         "%s %d" % (k, v) for k, v in sorted(counters.items()))))
     if counters.get("chain.launches"):
         say(phase, "%s chaining: %s" % (what, chain_line(stages, counters)))
-    busy = sum(stages[k][0] for k in ("chain.gpu_busy", "ext.gpu_busy")
-               if k in stages)
-    say(phase, "%s: card busy %.3f s (chain.gpu_busy + ext.gpu_busy) of "
+    busy = sum(stages[k][0] for k in ("chain.gpu_busy", "ext.gpu_busy",
+                                      "seed.gpu_busy") if k in stages)
+    say(phase, "%s: card busy %.3f s (the *.gpu_busy stages) of "
         "%.3f s wall: idle share %.3f; of the %.3f s after the index "
         "build: idle share %.3f" % (
             what, busy, wall, 1 - busy / wall, wall - stages["index"][0],
@@ -1601,18 +1829,25 @@ def kernel_line(name, source, replaces, launches, max_err, times, work,
             "library_ms": None}
 
 
-PHASES = ("1", "2", "3", "3b", "4", "5", "6", "7", "8", "9", "10")
+PHASES = ("1", "2", "3", "3b", "4", "5", "5s", "6", "7", "8", "9", "10")
+# the deep parity runs (paths mapped again through the plain versions):
+# run with --deep or when named in --phases
+DEEP = ("7", "10")
 # phases that take another phase's outputs
-NEEDS = {"6": ("5",), "7": ("5", "6"), "10": ("8", "9")}
+NEEDS = {"5s": ("5",), "6": ("5",), "7": ("5", "6"), "10": ("8", "9")}
 
 
 def parse_phases(argv):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", help="comma-separated phases to run "
-                    "besides 0 and 11 (default: all of %s)" % ",".join(PHASES))
+                    "besides 0 and 11 (default: all of %s but the deep "
+                    "parity runs %s)" % (",".join(PHASES), ",".join(DEEP)))
+    ap.add_argument("--deep", action="store_true",
+                    help="with no --phases: also the deep parity runs %s"
+                    % ",".join(DEEP))
     opts = ap.parse_args(argv)
     if opts.phases is None:
-        return set(PHASES)
+        return set(PHASES) - (set() if opts.deep else set(DEEP))
     sel = {x.strip() for x in opts.phases.split(",")} - {"", "0", "11"}
     if sel - set(PHASES):
         ap.error("unknown phases %s (phases: %s)"
@@ -1641,10 +1876,14 @@ def main(argv=None) -> int:
     k3 = phase_ext_kernel_vs_plain() if "3" in run else None
     k4 = phase_exts2_kernel_vs_plain() if "3b" in run else None
     k2 = phase_v2_kernel_vs_plain() if "4" in run else None
-    launches = ext_launches = sr = tx = None
+    launches = ext_launches = sr = tx = seed = None
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         if "5" in run:
-            ref, reads, lines, launches = phase_main_path(tmp)
+            ref, reads, lines, launches, ph5 = phase_main_path(tmp)
+        if "5s" in run:
+            seed, outside, big = phase_seed_kernels(tmp, ref, reads, clock)
+            seed_launches = phase_seed_path(tmp, ref, reads, lines, ph5,
+                                            (outside, big))
         if "6" in run:
             sam, ext_launches = phase_sam(tmp, ref, reads)
         if "7" in run:
@@ -1669,7 +1908,8 @@ def main(argv=None) -> int:
     B, N = SHAPES[-1]
     say(11, "K1 at (%d, %d), K2 at (%d, %d) (cDNA, 1 segment, -x splice), "
         "K3 at B = %d, %d-%d bp, K4 at B = %d, exons %d-%d, introns %d-%d "
-        "bp: bound = max(bytes / %.3g B/s, int32 instructions / (%d SMs x "
+        "bp, K5 and K6 at phase 5s's largest dispatch: bound = max(bytes / "
+        "%.3g B/s, int32 instructions / (%d SMs x "
         "%d lanes x %g MHz))" % (
             B, N, *V2_SHAPES[-1], *EXT_SHAPES[-1][:3], EXTS2_SHAPES[-1][0],
             *EXTS2_SHAPES[-1][1], *EXTS2_SHAPES[-1][2], HBM_BYTES_S, SMS,
@@ -1701,6 +1941,18 @@ def main(argv=None) -> int:
             "ksw2_exts2", "mm2tpu_torch/csrc/ksw2_exts2.cu",
             "mm2tpu/ops/ksw2_pallas.py:847", tx[3] if tx else None, s2_err,
             s2_times, s2_work, clock))
+    if seed:
+        for (name, replaces), n in zip(
+                (("seed_probe", "mm2tpu/parallel/mesh.py:137"),
+                 ("seed_build", "mm2tpu/ops/seed_device.py:73")),
+                seed_launches):
+            ms, plain_ms, lib_ms, work, err = seed[name]
+            line = kernel_line(name, "mm2tpu_torch/csrc/seed.cu", replaces,
+                               n, err, (ms, plain_ms), work, clock)
+            # torch.searchsorted (K5's search); for K6, torch.sort of its
+            # output: the sort step that follows the build
+            line["library_ms"] = lib_ms
+            lines.append(line)
     print(json.dumps({"kernels": lines}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,8 @@ the index reader (`index_parts`, `_mmi_cached_parts`), `_revcomp_bseq`
 and the emission (`emit`) are the port's verbatim copies of that
 module's; `apply_args` leaves out `--router-params`, the cost model of
 the stream mode's routing (ROADMAP M3), which the port refuses. Added:
-`--device {cuda,cpu}` and the value `gpu` of `--align-backend`. Usage:
+`--device {cuda,cpu}` and the value `gpu` of `--align-backend` and of
+`--seed-backend`. Usage:
 
     python -m mm2tpu_torch.cli -x map-ont [--device cuda] ref.fa reads.fa
     python -m mm2tpu_torch.cli -x map-ont -a --align-backend gpu \
@@ -16,6 +17,8 @@ the stream mode's routing (ROADMAP M3), which the port refuses. Added:
     python -m mm2tpu_torch.cli -x sr [-a [--align-backend gpu]] \
         [--device cuda] ref.fa reads_1.fq reads_2.fq
     python -m mm2tpu_torch.cli -x splice [-a] [--device cuda] ref.fa reads.fa
+    python -m mm2tpu_torch.cli -x map-ont --seed-backend gpu [--device cuda] \
+        ref.fa reads.fa
 """
 from __future__ import annotations
 
@@ -543,7 +546,8 @@ def _unsupported(args, mo: MapOptions) -> Optional[str]:
     if args.hosts:
         return "--hosts (multi-host, ROADMAP M9)"
     if args.seed_backend == "tpu":
-        return "--seed-backend tpu (device seeding, ROADMAP M7)"
+        return ("--seed-backend tpu (the JAX package's device seeding; the "
+                "port's is --seed-backend gpu)")
     if args.align_backend == "tpu":
         return ("--align-backend tpu (the Pallas kernels; the port's device "
                 "extension is --align-backend gpu)")
@@ -578,17 +582,26 @@ def build_torch_parser():
                 "reads) of at least --align-tpu-min-mat cells, batched "
                 "across reads, on --device (bit-exact); host = the native "
                 "extension")
+    act = next(a for a in p._actions if a.dest == "seed_backend")
+    act.choices = ["host", "tpu", "gpu"]
+    act.help = ("gpu = the index probe, the anchor build and sort and the "
+                "chaining on --device, in one dispatch per bucket, for "
+                "single-segment reads outside the ava presets (the others "
+                "seed on the host; byte-identical output); host = seeding "
+                "on the host")
     return p
 
 
 def main(argv: Optional[List[str]] = None, *, chain_fn=None,
-         ext_fn=None, exts2_fn=None) -> int:
+         ext_fn=None, exts2_fn=None, seed_fn=None) -> int:
     """Run the CLI on `argv`; returns the exit code. `chain_fn` replaces
     the chaining function of every batch (see
     `ops.chain_packed.chain_scores_packed`), `ext_fn` and `exts2_fn` the
     extension function of every extd2 and splice flush of
     `--align-backend gpu` (see `ops.ksw2_extd2.extd2_batch` and
-    `ops.ksw2_exts2.exts2_batch`): a check runs the same arguments
+    `ops.ksw2_exts2.exts2_batch`), `seed_fn` the fused seeding and
+    chaining of every bucket of `--seed-backend gpu` (see
+    `ops.seed_device.seed_chain`): a check runs the same arguments
     through the kernels' plain versions with them."""
     argv = argv if argv is not None else sys.argv[1:]
     # ketopt optional-argument semantics (as mm2tpu.cli.main)
@@ -627,7 +640,7 @@ def main(argv: Optional[List[str]] = None, *, chain_fn=None,
         else sys.stdout
     try:
         rc = _run(args, argv, io, mo, device, out, chain_fn, ext_fn,
-                  exts2_fn)
+                  exts2_fn, seed_fn)
     finally:
         if out is not sys.stdout:
             out.close()
@@ -639,7 +652,7 @@ def main(argv: Optional[List[str]] = None, *, chain_fn=None,
 
 
 def _run(args, argv, io, mo: MapOptions, device, out, chain_fn,
-         ext_fn, exts2_fn) -> int:
+         ext_fn, exts2_fn, seed_fn) -> int:
     parts = index_parts(args.target, io, n_threads=args.t)
     with profiling.stage("index"):
         mi = next(parts, None)
@@ -702,7 +715,7 @@ def _run(args, argv, io, mo: MapOptions, device, out, chain_fn,
         if args.query:
             mapopt_update(mo, mi)
             n_mapped = map_all(args.query, mi, mo, out, device, chain_fn,
-                               ext_fn, exts2_fn)
+                               ext_fn, exts2_fn, seed_fn)
             timing.log("worker_pipeline", "mapped %d sequences" % n_mapped)
         n_parts += 1
         mi = nxt
@@ -710,7 +723,8 @@ def _run(args, argv, io, mo: MapOptions, device, out, chain_fn,
 
 
 def map_batch(mi, mo: MapOptions, batch, consume, device,
-              chain_fn=None, ext_fn=None, exts2_fn=None) -> None:
+              chain_fn=None, ext_fn=None, exts2_fn=None,
+              seed_fn=None) -> None:
     """Batched mapping of one mini-batch (mm2tpu.cli._map_batch): paired
     orientation and INDEPEND_SEG splitting as in mm2tpu.cli."""
     from .mapping.pipeline import map_frags_batched
@@ -734,7 +748,7 @@ def map_batch(mi, mo: MapOptions, batch, consume, device,
     ress = map_frags_batched(mi, [t[0] for t in tasks], mo,
                              [t[1] for t in tasks], device,
                              chain_fn=chain_fn, ext_fn=ext_fn,
-                             exts2_fn=exts2_fn)
+                             exts2_fn=exts2_fn, seed_fn=seed_fn)
     frag_res = {}
     for (fi, seg), r in zip(meta, ress):
         if seg is None or fi not in frag_res:
@@ -757,7 +771,7 @@ def map_batch(mi, mo: MapOptions, batch, consume, device,
 
 
 def map_all(query_paths, mi, mo: MapOptions, out, device,
-            chain_fn=None, ext_fn=None, exts2_fn=None) -> int:
+            chain_fn=None, ext_fn=None, exts2_fn=None, seed_fn=None) -> int:
     """Map every query mini-batch against one index part and emit in
     input order. Returns the number of sequences mapped."""
     reader = FastxReader(query_paths, mo.mini_batch_size,
@@ -772,7 +786,7 @@ def map_all(query_paths, mi, mo: MapOptions, out, device,
 
     for batch in reader.batches():
         map_batch(mi, mo, batch, consume, device, chain_fn, ext_fn,
-                  exts2_fn)
+                  exts2_fn, seed_fn)
     return n_mapped
 
 

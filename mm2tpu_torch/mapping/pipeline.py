@@ -7,10 +7,12 @@ chaining call are the port's verbatim copies of that module's
 `FragResult`, `_FragCtx`, `_prepare` (seeding), `_needs_rechain` (the
 re-seed trigger), `_post_chain` (everything after chaining) and
 `_align_regs`, with `BUCKETS`/`bucket_for` from
-`mm2tpu/parallel/batching.py`. The JAX package's `map_frag`, device
-seeding and mesh steps are not copied. The per-bucket chaining call
-changes, and with `--align-backend gpu` the reads are aligned on a
-thread pool whose extension fills meet in a `TorchExtBatcher`.
+`mm2tpu/parallel/batching.py`. Its device seeding round
+(`_seed_device_eligible`, `_seed_device_round`) is ported on
+`ops/seed_device.py`; its `map_frag` and mesh steps are not copied. The
+per-bucket chaining call changes, and with `--align-backend gpu` the
+reads are aligned on a thread pool whose extension fills meet in a
+`TorchExtBatcher`.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from ..device import resolve_device
 from ..index.build import MMIndex
 from ..native import lib as native
 from ..ops import chain_ref
+from ..ops import seed_device as sd
 from ..ops.chain_packed import (WINDOW, chain_scores_packed, pack_tasks16,
                                 planes_to_torch, unpack_prel, v_carry_host)
 from ..options import (MapOptions, MM_F_SPLICE, MM_F_SR, MM_F_CIGAR,
@@ -39,7 +42,7 @@ from .chain import chain_gaps
 from .esterr import est_err
 from .extbatch import TorchExtBatcher, worker_scope
 from .hit import Region
-from .seed import collect_minimizers, collect_seed_hits
+from .seed import SeedResult, collect_minimizers, collect_seed_hits
 
 # the batch sizes of the JAX package, kept so both packages form the same
 # batches (a task's chaining does not depend on its batch either way)
@@ -261,10 +264,290 @@ def _count_host_fills():
             setattr(native, name, fn)
 
 
+def _to_host(tensors):
+    """Copies of `tensors` for the host, and the CUDA event that says
+    they are done (None on the CPU): on CUDA each goes into pinned host
+    memory by a non-blocking copy on the current stream."""
+    if tensors[0].device.type != "cuda":
+        return tuple(tensors), None
+    out = []
+    for t in tensors:
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        h.copy_(t, non_blocking=True)
+        out.append(h)
+    done = torch.cuda.Event()
+    done.record()
+    return tuple(out), done
+
+
+def _seed_device_eligible(opt: MapOptions, ctx: _FragCtx) -> bool:
+    """The JAX package's coverage contract of device seeding
+    (`mm2tpu/mapping/pipeline.py::_seed_device_eligible`, verbatim)."""
+    from ..options import (MM_F_FOR_ONLY, MM_F_NO_DIAG, MM_F_NO_DUAL,
+                           MM_F_REV_ONLY)
+    return (ctx.n_segs == 1 and not ctx.is_splice and
+            not (opt.flag & (MM_F_NO_DIAG | MM_F_NO_DUAL | MM_F_FOR_ONLY |
+                             MM_F_REV_ONLY)) and
+            0 < opt.mid_occ < 4096 and len(ctx.mv) > 0)
+
+
+# reads a device-seeding dispatch carries at most
+SEED_B = 32
+
+
+def _m_bucket(m: int) -> int:
+    """The minimizer count a read's row is padded to."""
+    for b in (512, 2048, 8192):
+        if m <= b:
+            return b
+    return -(-m // 8192) * 8192
+
+
+def _seed_chunks(groups: dict) -> list:
+    """(key, chunk, B) of each dispatch: every group split into chunks of
+    SEED_B reads, in key order; B is SEED_B where a group fills more than
+    one chunk, else the chunk's reads rounded up to a multiple of 8."""
+    out = []
+    for key, members in sorted(groups.items()):
+        for off in range(0, len(members), SEED_B):
+            chunk = members[off:off + SEED_B]
+            B = SEED_B if len(members) > SEED_B else \
+                max(8, -(-len(chunk) // 8) * 8)
+            out.append((key, chunk, B))
+    return out
+
+
+def _probe_chunks(ctxs: dict, idxs: List[int]) -> list:
+    """The count probes' dispatches: reads grouped by `_m_bucket`."""
+    groups: dict = {}
+    for i in idxs:
+        groups.setdefault(_m_bucket(len(ctxs[i].mv)), []).append(i)
+    return _seed_chunks(groups)
+
+
+def _seed_meta(prep, c: np.ndarray, mid_occ: int):
+    """From one read's minimizers (`split_query_minimizers`) and their
+    counts: (rep_len, mini_pos, anchor total, avg), as host seeding
+    computes them (the JAX package's round, verbatim; avg's f32 rounding
+    is chain.c:48-49's)."""
+    _, qpos, qspan, _ = prep
+    over = c >= mid_occ
+    rep_len = 0
+    rep_st = rep_en = 0
+    for j in np.nonzero(over)[0]:
+        en = int(qpos[j] >> 1) + 1
+        st = en - int(qspan[j])
+        if st > rep_en:
+            rep_len += rep_en - rep_st
+            rep_st, rep_en = st, en
+        else:
+            rep_en = en
+    rep_len += rep_en - rep_st
+    keep = ~over
+    mini_pos = (qspan[keep].astype(np.uint64) << np.uint64(32)) | \
+        (qpos[keep].astype(np.int64) >> 1).astype(np.uint64)
+    total = int(c[keep].sum())
+    sum_span = int((qspan[keep].astype(np.int64) * c[keep]).sum())
+    avg = np.float32((0.01 * float(np.float32(sum_span))) /
+                     total) if total else np.float32(0.0)
+    return rep_len, mini_pos, total, avg
+
+
+def _chain_chunks(ctxs: dict, idxs: List[int], meta: dict):
+    """The fused dispatches of the reads with anchors: (key = (M, N,
+    gap_ref, gap_qry), chunk, B) each, and the reads whose total needs a
+    bucket over 131072 (seeded on the host)."""
+    groups: dict = {}
+    big = []
+    for i in idxs:
+        total = meta[i][2]
+        if total == 0:
+            continue
+        N = bucket_for(total)
+        if N > 131072:
+            big.append(i)
+            continue
+        groups.setdefault((_m_bucket(len(ctxs[i].mv)), N, ctxs[i].gap_ref,
+                           ctxs[i].gap_qry), []).append(i)
+    return _seed_chunks(groups), big
+
+
+def _seed_planes(prep: dict, ctxs: dict, meta: dict, chunk, B: int,
+                 M: int):
+    """The host planes of one fused dispatch: q (B, M) int64 padded with
+    `PAD_Q`, qpos and qyhi = span | TANDEM<<10 (B, M) int32, qlen (B,)
+    int32 and avg (B, 1) float32."""
+    q = np.full((B, M), sd.PAD_Q, np.int64)
+    qpos_a = np.zeros((B, M), np.int32)
+    qyhi_a = np.zeros((B, M), np.int32)
+    qlen_a = np.ones(B, np.int32)
+    avg_a = np.zeros((B, 1), np.float32)
+    for r, i in enumerate(chunk):
+        h, qpos, qspan, qtand = prep[i]
+        q[r, :len(h)] = h
+        qpos_a[r, :len(h)] = qpos
+        qyhi_a[r, :len(h)] = qspan | (qtand << 10)
+        qlen_a[r] = ctxs[i].qlen_sum
+        avg_a[r, 0] = meta[i][3]
+    return q, qpos_a, qyhi_a, qlen_a, avg_a
+
+
+class _Marks:
+    """CUDA events recorded at the marks of one dispatch (none on the CPU
+    or without --profile), read into stages when its results are back."""
+
+    def __init__(self, on):
+        self.events = [] if on else None
+
+    def __call__(self):
+        if self.events is not None:
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            self.events.append(e)
+
+    def add(self, *names):
+        """Add the time between consecutive marks to the stages `names`."""
+        if self.events:
+            for k, name in enumerate(names):
+                profiling.add(name, self.events[k].elapsed_time(
+                    self.events[k + 1]) / 1e3)
+
+
+def _seed_device_round(mi: MMIndex, opt: MapOptions, ctxs: dict,
+                       idxs: List[int], dev, seed_fn) -> dict:
+    """Device seeding and chaining of the eligible fragments `idxs`
+    (`mm2tpu/mapping/pipeline.py::_seed_device_round`): the host ships
+    each read's minimizers, the device probes the index it holds for the
+    counts, the host derives rep_len, mini_pos, the anchor total and avg
+    from them, and then one dispatch per (M, N, gap) bucket of up to
+    SEED_B reads probes again, builds and sorts the anchors and chains
+    them on K1 (`seed_fn`, default `ops.seed_device.seed_chain`). Fills
+    ctx.sr and returns {i: (a, u)} backtrack results; a fragment whose
+    anchor total needs a bucket over 131072 keeps ctx.sr None (the
+    caller seeds it on the host). Dispatches run two deep: chunk k+1 is
+    packed and launched while chunk k's results come back."""
+    fn = sd.seed_chain if seed_fn is None else seed_fn
+    timed = dev.type == "cuda" and profiling.enabled
+    mid_occ = int(opt.mid_occ)
+    prep = {i: sd.split_query_minimizers(ctxs[i].mv) for i in idxs}
+    if profiling.enabled:
+        profiling.count("seed.minimizers", sum(len(prep[i][0])
+                                               for i in idxs))
+
+    # ---- the counts: one probe per chunk of each M bucket ----
+    cnts = {}
+    with profiling.stage("seed.device_probe"):
+        index = sd.prepare_index_device(mi, dev)
+        jobs = []
+        for M, chunk, B in _probe_chunks(ctxs, idxs):
+            q = np.full((B, M), sd.PAD_Q, np.int64)
+            for r, i in enumerate(chunk):
+                q[r, :len(prep[i][0])] = prep[i][0]
+            (qt,) = planes_to_torch(q, dev)
+            marks = _Marks(timed)
+            marks()
+            _, c = sd.probe_counts(index["keys"], index["start"],
+                                   index["cnt"], qt)
+            marks()
+            (c,), done = _to_host((c,))
+            jobs.append((chunk, c, done, marks))
+            if profiling.enabled:
+                profiling.count("seed.launches")
+                profiling.count("seed.bytes_up", q.nbytes)
+        for chunk, c, done, marks in jobs:
+            if done is not None:
+                done.synchronize()
+            c = c.numpy()
+            marks.add("seed.gpu_busy")
+            if profiling.enabled:
+                profiling.count("seed.bytes_down", c.nbytes)
+            for r, i in enumerate(chunk):
+                cnts[i] = c[r, :len(ctxs[i].mv)]
+
+    # ---- host: rep_len / mini_pos / totals / avg (seed.py semantics) ----
+    meta = {i: _seed_meta(prep[i], cnts[i], mid_occ) for i in idxs}
+    outs: dict = {}
+    for i in idxs:
+        rep_len, mini_pos, total, _ = meta[i]
+        if total == 0:
+            ctxs[i].sr = SeedResult(np.zeros((0, 2), np.uint64), rep_len,
+                                    mini_pos, len(ctxs[i].mv))
+            outs[i] = (np.zeros((0, 2), np.uint64), np.zeros(0, np.uint64))
+
+    # ---- fused probe + build + sort + chain per (M, N, gap) bucket ----
+    iter_cap = min(WINDOW, opt.max_chain_iter)
+    plan, big = _chain_chunks(ctxs, idxs, meta)
+    for i in big:
+        ctxs[i].sr = None  # seeded on the host
+    native_v = native.available()
+
+    def dispatch(job):
+        (M, N, gap_ref, gap_qry), chunk, B = job
+        arrays = _seed_planes(prep, ctxs, meta, chunk, B, M)
+        with profiling.stage("seed.device_chain"):
+            if profiling.enabled:
+                totals = [meta[i][2] for i in chunk]
+                profiling.count("seed.launches", 2)
+                profiling.count("seed.anchors", sum(totals))
+                profiling.count("seed.bytes_up", sum(a.nbytes
+                                                     for a in arrays))
+                profiling.count("chain.launches")
+                profiling.count("chain.anchors", sum(totals))
+                profiling.count("chain.padded_anchors", B * N)
+                profiling.count("chain.steps", max(totals))
+            planes = planes_to_torch(*arrays, dev)
+            marks = _Marks(timed)
+            out = fn(index, *planes, N=N, mid_occ=mid_occ,
+                     max_dist_x=gap_ref, max_dist_y=gap_qry, bw=opt.bw,
+                     iter_cap=iter_cap, gap_scale=float(opt.chain_gap_scale),
+                     mark=marks)
+            out, done = _to_host(out)
+        return chunk, out, done, marks
+
+    def consume(item):
+        chunk, out, done, marks = item
+        with profiling.stage("seed.device_chain"):
+            if done is not None:
+                done.synchronize()
+            hi, lo, yhi, ylo, f, prel, n = (t.numpy() for t in out)
+        marks.add("seed.gpu_busy", "chain.gpu_busy")
+        if profiling.enabled:
+            profiling.count("seed.bytes_down", sum(
+                a.nbytes for a in (hi, lo, yhi, ylo, f, prel, n)))
+        with profiling.stage("chain.backtrack"):
+            for r, i in enumerate(chunk):
+                rep_len, mini_pos, total, _ = meta[i]
+                if int(n[r, 0]) != total:
+                    raise RuntimeError(
+                        "device seeding built %d anchors for read %d, the "
+                        "counts gave %d" % (int(n[r, 0]), i, total))
+                a = sd.anchors_from_device(hi[r], lo[r], yhi[r], ylo[r],
+                                           total)
+                ctxs[i].sr = SeedResult(a, rep_len, mini_pos,
+                                        len(ctxs[i].mv))
+                p = unpack_prel(prel[r], total)
+                if native_v:
+                    v = native.v_carry(f[r, :total], p)
+                else:
+                    v = v_carry_host(f[r:r + 1, :total], p[None])[0]
+                outs[i] = chain_ref.chain_backtrack(
+                    total, f[r, :total], p, v, a, opt.min_cnt,
+                    opt.min_chain_score)
+
+    inflight = deque()
+    for job in plan:
+        inflight.append(dispatch(job))
+        if len(inflight) > 2:
+            consume(inflight.popleft())
+    while inflight:
+        consume(inflight.popleft())
+    return outs
+
+
 def map_frags_batched(mi: MMIndex, frag_seqs: Sequence[Sequence[str]],
                       opt: MapOptions, qnames: Sequence[Optional[str]],
                       device, *, chain_fn=None, ext_fn=None,
-                      exts2_fn=None) -> List[FragResult]:
+                      exts2_fn=None, seed_fn=None) -> List[FragResult]:
     """Map many fragments with batched chaining on `device` ("cuda" or
     "cpu"): fragments are seeded on the host, their anchor arrays grouped
     into fixed (B, N) buckets, and each bucket chained in one call, then
@@ -282,6 +565,13 @@ def map_frags_batched(mi: MMIndex, frag_seqs: Sequence[Sequence[str]],
     pairs, spliced reads) on K2. `chain_fn` replaces the chaining
     function (see `ops.chain_packed.chain_scores_packed`).
 
+    With `opt.seed_backend == "gpu"` the fragments that the JAX package's
+    coverage contract admits (`_seed_device_eligible`) are seeded on
+    `device` by `_seed_device_round` (the index probe, the anchor build
+    and sort, and K1, fused; `seed_fn` replaces
+    `ops.seed_device.seed_chain`); the others are seeded on the host and
+    chained as above, and `--profile` counts them as `seed.host_frags`.
+
     With `opt.align_backend == "gpu"` and CIGARs on, the reads are
     aligned on a pool of up to 32 threads. Every extd2 or splice fill of
     at least `opt.align_tpu_min_mat` cells goes to a `TorchExtBatcher` on
@@ -292,8 +582,8 @@ def map_frags_batched(mi: MMIndex, frag_seqs: Sequence[Sequence[str]],
     `ops.ksw2_exts2.exts2_batch`)."""
     if opt.seed_backend == "tpu":
         raise NotImplementedError(
-            "device seeding (--seed-backend tpu) is not ported yet "
-            "(ROADMAP M7)")
+            "--seed-backend tpu runs the JAX package's device seeding; the "
+            "port's is --seed-backend gpu")
     if opt.align_backend == "tpu":
         raise NotImplementedError(
             "--align-backend tpu runs the Pallas kernels; the port's "
@@ -303,8 +593,9 @@ def map_frags_batched(mi: MMIndex, frag_seqs: Sequence[Sequence[str]],
     results: List[Optional[FragResult]] = [None] * len(frag_seqs)
     ctxs: dict = {}
     pending: List[int] = []
+    use_dev_seed = opt.seed_backend == "gpu"
     for i, (seqs, qname) in enumerate(zip(frag_seqs, qnames)):
-        prep = _prepare(mi, seqs, opt, qname)
+        prep = _prepare(mi, seqs, opt, qname, seed_hits=not use_dev_seed)
         if isinstance(prep, FragResult):
             results[i] = prep
         else:
@@ -361,17 +652,7 @@ def map_frags_batched(mi: MMIndex, frag_seqs: Sequence[Sequence[str]],
                     n_segs=n_segs, chain_fn=chain_fn)
                 if busy is not None:
                     busy[1].record()
-                done = None
-                if on_cuda:
-                    f_h = torch.empty(f.shape, dtype=f.dtype,
-                                      pin_memory=True)
-                    pr_h = torch.empty(prel.shape, dtype=prel.dtype,
-                                       pin_memory=True)
-                    f_h.copy_(f, non_blocking=True)
-                    pr_h.copy_(prel, non_blocking=True)
-                    done = torch.cuda.Event()
-                    done.record()
-                    f, prel = f_h, pr_h
+                (f, prel), done = _to_host((f, prel))
             return chunk, f, prel, done, busy
 
         def consume(item):
@@ -413,7 +694,22 @@ def map_frags_batched(mi: MMIndex, frag_seqs: Sequence[Sequence[str]],
     on_device = torch.cuda.device(dev) if on_cuda else \
         contextlib.nullcontext()
     with on_device:
-        outs = run_round(pending)
+        if use_dev_seed:
+            elig = [i for i in pending if _seed_device_eligible(opt, ctxs[i])]
+            outs = _seed_device_round(mi, opt, ctxs, elig, dev, seed_fn)
+            rest = []
+            for i in pending:
+                if ctxs[i].sr is None:  # outside the contract, or too big
+                    profiling.count("seed.host_frags")
+                    with profiling.stage("seed"):
+                        ctxs[i].sr = collect_seed_hits(
+                            mi, opt, opt.mid_occ, ctxs[i].mv, ctxs[i].qname,
+                            ctxs[i].qlen_sum)
+                if i not in outs:
+                    rest.append(i)
+            outs.update(run_round(rest))
+        else:
+            outs = run_round(pending)
         rechain = []
         for i in pending:
             a, u = outs[i]

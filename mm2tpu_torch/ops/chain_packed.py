@@ -81,12 +81,14 @@ def chain_scores_packed(hi, lo, yhi, ylo, n, avg, *, max_dist_x: int,
     return f, p_rel(p)
 
 
-def planes_to_torch(hi, lo, yhi, ylo, n, avg, device):
-    """`pack_tasks16`'s NumPy planes as tensors on `device`. A CUDA upload
-    goes through pinned memory and does not block the host."""
+def planes_to_torch(*arrays_then_device):
+    """NumPy arrays (`pack_tasks16`'s planes, or device seeding's) as
+    tensors on the device given last. A CUDA upload goes through pinned
+    memory and does not block the host."""
+    *arrays, device = arrays_then_device
     dev = torch.device(device)
     out = []
-    for a in (hi, lo, yhi, ylo, n, avg):
+    for a in arrays:
         t = torch.from_numpy(np.ascontiguousarray(a))
         if dev.type == "cuda":
             t = t.pin_memory().to(dev, non_blocking=True)

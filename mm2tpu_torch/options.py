@@ -130,7 +130,7 @@ class MapOptions:
     align_backend: str = "host"  # host | gpu
     align_tpu_min_mat: int = 1 << 20
     # device-side seeding in --map-mode batch (ops/seed_device.py)
-    seed_backend: str = "host"  # host | tpu
+    seed_backend: str = "host"  # host | gpu
     # debug channels (mm_dbg_flag, mmpriv.h:12-15)
     dbg_print_aln_seq: bool = False
     dbg_print_qname: bool = False

@@ -1,7 +1,8 @@
 """What the CPU tests of the port's CUDA sources share (the two ksw2
 kernels K3, csrc/ksw2_extd2.cu, and K4, csrc/ksw2_exts2.cu, in the ksw2
 tests; the chaining kernel K1/K2, csrc/chain.cu, in
-tests/test_torch_chain_shim.py), with tests of its own:
+tests/test_torch_chain_shim.py; the seeding kernels K5/K6, csrc/seed.cu,
+in tests/test_torch_seed_device.py), with tests of its own:
 
 - `CUDA_SHIM` and `build_on_cpu`: a CPU stand-in for the CUDA that the
   kernels use, so that g++ builds a kernel's own source here and ctypes
@@ -25,9 +26,9 @@ from mm2tpu_torch.ops import _build
 
 # One fiber per CUDA thread on the calling thread (so the tests' time does
 # not depend on what else runs on the machine), blocks in series, a
-# barrier for __syncthreads and for the two halves of a warp reduction,
-# a static array for the dynamic shared memory, and the integer and float
-# intrinsics of the chaining kernel.
+# barrier for __syncthreads and for the two halves of a warp reduction or
+# shuffle, a static array for the dynamic shared memory, and the integer
+# and float intrinsics of the chaining and seeding kernels.
 CUDA_SHIM = r"""
 #pragma once
 #include <setjmp.h>
@@ -141,6 +142,15 @@ inline int __reduce_max_sync(unsigned, int v) {
   g_warp_bar[w].arrive_and_wait();
   return m;
 }
+inline int __shfl_up_sync(unsigned, int v, unsigned delta) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  g_warp_buf[w][lane] = v;
+  g_warp_bar[w].arrive_and_wait();
+  const int u = lane >= static_cast<int>(delta) ? g_warp_buf[w][lane - delta]
+                                                : v;
+  g_warp_bar[w].arrive_and_wait();
+  return u;
+}
 inline unsigned long long shim_timer() {
   return std::chrono::duration_cast<std::chrono::nanoseconds>(
       std::chrono::steady_clock::now().time_since_epoch()).count();
@@ -201,9 +211,9 @@ inline void shim_launch(int nb, int nt, const std::function<void()>& f) {
 
 def build_on_cpu(src: str, out_dir: Path, defines=(),
                  stamped=True) -> ctypes.CDLL:
-    """Build CUDA source text `src` (one kernel, or a template of one,
-    launched as `name<<<B, THREADS, smem, stream>>>(...)` with any shared
-    memory size argument; when `stamped`, with exactly one declaration of
+    """Build CUDA source text `src` (kernels, or templates of them, each
+    launched as `name<<<grid, threads, smem, stream>>>(...)` with a name
+    or a literal for each of the first three arguments; when `stamped`, with exactly one declaration of
     the dynamic shared memory `dsmem` and one `%globaltimer` stamp line,
     else with neither) with g++ against CUDA_SHIM into `out_dir`, load it
     and bind its entry points as ops/_build.py does."""
@@ -217,9 +227,9 @@ def build_on_cpu(src: str, out_dir: Path, defines=(),
         assert src.count(old) == int(stamped), old
         src = src.replace(old, new)
     src, n = re.subn(
-        r"(\w+(?:<\w+>)?)<<<B, THREADS, \w+, stream>>>\(([^;]*)\);",
-        r"shim_launch(B, THREADS, [&]() { \1(\2); });", src)
-    assert n == 1
+        r"(\w+(?:<\w+>)?)<<<(\w+), (\w+), \w+, stream>>>\(([^;]*)\);",
+        r"shim_launch(\2, \3, [&]() { \1(\4); });", src)
+    assert n >= 1
     (out_dir / "cuda_shim.h").write_text(CUDA_SHIM)
     (out_dir / "k.cpp").write_text(src)
     so = out_dir / "libkernel_shim.so"

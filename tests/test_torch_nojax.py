@@ -58,7 +58,8 @@ def test_every_module_imports_and_cli_runs_without_jax(workload,
                                                        tmp_path):
     ref, reads = workload
     (r1, r2), spliced = pairs_and_spliced
-    out = {k: tmp_path / k for k in ("paf", "sam", "sr.sam", "tx.paf")}
+    out = {k: tmp_path / k for k in ("paf", "sam", "sr.sam", "tx.paf",
+                                     "dev.paf")}
     r = run_python(f"""
 import importlib, pkgutil
 import mm2tpu_torch
@@ -84,11 +85,18 @@ assert rc == 0, rc
 rc = main(["-x", "splice", "--device", "cpu", "-o", {str(out["tx.paf"])!r},
            {ref!r}, {spliced!r}])
 assert rc == 0, rc
+# device seeding: the index probe, the anchor build and K1
+from mm2tpu_torch.ops import seed_device
+rc = main(["-x", "map-ont", "--seed-backend", "gpu", "--device", "cpu",
+           "-o", {str(out["dev.paf"])!r}, {ref!r}, {reads!r}])
+assert rc == 0, rc
+assert all(seed_device.reference_calls.values()), seed_device.reference_calls
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "mm2tpu")]
 assert not bad, bad
 """)
     assert r.returncode == 0, r.stderr[-3000:]
     assert len(out["paf"].read_text().splitlines()) >= 12
+    assert out["dev.paf"].read_text() == out["paf"].read_text()
     for k, n in (("sam", 12), ("sr.sam", 40)):
         assert sum(1 for ln in out[k].read_text().splitlines()
                    if not ln.startswith("@")) >= n
@@ -199,7 +207,10 @@ def test_resolve_device_is_explicit():
 @pytest.mark.parametrize("flags,item,n_queries", [
     (["--mesh", "2"], "M8", 1),
     (["--hosts", "2"], "M9", 1),
-    (["--seed-backend", "tpu"], "M7", 1),
+    # the JAX package's device seeding, refused naming the port's; the id
+    # is the one this case had when it expected the M7 refusal
+    pytest.param(["--seed-backend", "tpu"], "--seed-backend gpu", 1,
+                 id="flags2-M7-1"),
     (["--align-backend", "tpu"], "--align-backend gpu", 1),
     (["--chain-backend", "native"], "M3", 1),
     (["--split-prefix", "x"], "M1", 1),

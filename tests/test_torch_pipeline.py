@@ -88,7 +88,7 @@ def test_map_frags_batched_matches_jax(small_genome):
 
 def test_map_frags_batched_rejects_unported_backends(small_genome):
     mi, mo, frags, names, _ = small_genome
-    for field, item in (("seed_backend", "M7"),
+    for field, item in (("seed_backend", "seed-backend gpu"),
                         ("align_backend", "align-backend gpu")):
         old = getattr(mo, field)
         setattr(mo, field, "tpu")
