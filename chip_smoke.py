@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's batch paths once on one CUDA card: -x map-ont
+"""Drive the PyTorch port's paths once on one CUDA card: -x map-ont
 (PAF, host-seeded and device-seeded, and SAM), -x sr read pairs and -x
 splice spliced reads (PAF, and SAM and PAF with CIGARs through the splice
-kernel).
+kernel) in batch mode, and -x map-ont in stream mode (each chaining task
+placed on the host or the card on its own), with --split-prefix.
 
 Run from the root of a checkout, with no arguments, for the gate (every
 phase but the deep parity runs, 7 and 10):
@@ -17,10 +18,11 @@ or with `--phases LIST` (for example `--phases 1,3` to build and try
 the extd2 kernel, `--phases 1,3,5,6` to add the map-ont SAM path,
 `--phases 1,3b,9` for the splice kernel and the spliced-read path,
 `--phases 1,2,4` for the chaining kernel's K1 and K2, `--phases 1,5,5s`
-for the seeding kernels K5 and K6 and the device-seeded path) to run
+for the seeding kernels K5 and K6 and the device-seeded path, `--phases
+1,5,5r` for the stream mode) to run
 phase 0, the named phases and phase 11's import check only; the kernel
 JSON line then lists only the kernels whose phase ran (launches null
-where their path's phase did not run). Phases 5s and 6 need 5, 7 needs
+where their path's phase did not run). Phases 5s, 5r and 6 need 5, 7 needs
 5 and 6, and 10 needs 8 and 9: a list that names one without the other
 is refused. Phases 8 and 9 generate the genome of phase 5 themselves.
 
@@ -83,6 +85,27 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      (ii) `--seed-backend gpu`: its PAF byte-identical to phase 5's, only
      K5, K6 and K1 launched, with the seed.* counters, seed.gpu_busy,
      chain.gpu_busy and the idle share
+ 5r. the stream mode on phase 5's genome and reads: (i) K1 and K2 (cDNA
+     contract) at B = 1 on scripts/train_router_torch.py's synthetic
+     tasks, n = 512 to 32768, each timed end to end (pack, upload,
+     launch, readback) beside the committed H100 cost model's
+     predict_dev, and held against its plain version (f and p equal) at
+     four of the sizes, and the model's predictions and placement held
+     against the first 100 reads' real tasks, each timed on the card and
+     in the host DP (printed, not gated: times vary); (ii) `--map-mode stream --chain-backend gpu -t
+     8`: its PAF byte-identical to phase 5's batch PAF, every task one K1
+     launch, none on the host; (iii) `--chain-backend native`: no kernel
+     launched; (iv) `auto` with the committed H100 constants: >= 95% of
+     the reads mapped, route.gpu, route.gpu_anchors and route.host
+     printed, each read's lines equal to (ii)'s or (iii)'s except at
+     most the rechained reads, and the walls, chain.gpu_busy and idle
+     shares of (ii)-(iv) beside phase 5's; (v) `-a --align-backend gpu
+     --align-tpu-min-mat 1` in stream mode on the first 100 map-ont
+     reads (K3) and on 50 seeded spliced reads (`-x splice`, K4), both
+     chained on the card: each fill one launch, none on the host, and
+     the SAMs byte-identical to `--align-backend host`'s; (vi)
+     `--split-prefix` with -I so that the index comes in two parts: two,
+     >= 95% of the reads mapped, no .tmp file left
   6. the map-ont SAM path: the same reads with `-a --align-backend gpu
      --align-tpu-min-mat 1`, every extension fill on K3 (the flushes'
      serial rows ext.d2_rows, the wide fills ext.d2_wide, K3's card time
@@ -115,7 +138,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      spliced reads through the SAM path with the plain exts2 on CUDA
      tensors: their SAM records must be byte-identical to K4's
  11. no module of jax or of the JAX package loaded; a JSON line per
-     kernel (times, launches, bound), the card's name and power limit,
+     kernel (times, launches, bound, stream-mode launches and, from 5r,
+     B = 1 times), the card's name and power limit,
      then {"ok": true, "device": {...}} last
 
 Everything runs through `mm2tpu_torch`; the script imports nothing of
@@ -714,7 +738,7 @@ def phase_ext_kernel_vs_plain():
                           end_bonus=-1)
                 ms, out = cuda_ms(functools.partial(
                     X.extd2_traced, *planes, **kw, lens_h=pk.lens), 3)
-                stamps = X.last_stamps.cpu().numpy()
+                stamps = X.launch_stamps().cpu().numpy()
                 plain_ms, ref = cuda_ms(functools.partial(
                     X.extd2_traced_reference, *planes, **kw), 1,
                     warmup=False)
@@ -867,7 +891,7 @@ def phase_exts2_kernel_vs_plain():
                       extz_only=False)
             ms, out = cuda_ms(functools.partial(S.exts2_traced, *planes,
                                                 **kw, lens_h=pk.lens), 3)
-            stamps = S.last_stamps.cpu().numpy()
+            stamps = S.launch_stamps().cpu().numpy()
             plain_ms, _ = cuda_ms(functools.partial(
                 S.exts2_traced_reference, *planes, **kw), 1, warmup=False)
             timed = (ms, plain_ms)
@@ -964,6 +988,10 @@ def workload(tmp, phase):
     return _workloads[tmp]
 
 
+# phase 5's wall and stage seconds, which phase 5r compares with
+PH5 = {}
+
+
 def phase_main_path(tmp):
     from mm2tpu_torch import cli
     from mm2tpu_torch.ops import chain_v3
@@ -1005,6 +1033,7 @@ def phase_main_path(tmp):
     say(5, "counters: " + ", ".join(
         "%s %d" % (k, v) for k, v in sorted(counters.items())))
     say(5, "chaining: " + chain_line(stages, counters))
+    PH5.update(wall=wall, stages=stages)
     busy = stages["chain.gpu_busy"][0]
     mapping_wall = wall - stages["index"][0]
     say(5, "card busy %.3f s (chain.gpu_busy) of %.3f s wall: idle share "
@@ -1208,6 +1237,345 @@ def phase_seed_path(tmp, ref, reads, lines, ph5_counters, why):
             "" if not counters.get("seed.host_frags") else
             " (outside the contract: %s; over the largest bucket: %s)" % why))
     return counts["seed_probe"][0], counts["seed_build"][0]
+
+
+# ---- phase 5r: the stream mode's per-task routing ----
+
+# the trainer's synthetic tasks (scripts/train_router_torch.py, map
+# regime) on which K1 and K2 are timed at B = 1 end to end, and the sizes
+# at which each is also held against its plain version (~0.5 ms a plain
+# step on the card: ~22 s a kernel)
+STREAM_NS = (512, 1024, 2048, 4096, 8192, 16384, 32768)
+STREAM_PLAIN_NS = (512, 2048, 8192, 32768)
+STREAM_DENSITY = 0.3
+# the trainer's chaining settings: max_dist_x, max_dist_y, bw, max_iter,
+# gap_scale
+STREAM_CHAIN = (5000, 5000, 500, 1024, 1.0)
+# the stream runs' mapping threads, and the reads of (v)
+STREAM_THREADS = 8
+STREAM_SAM_READS, STREAM_SPLICE_READS = 100, 50
+# phase 5's reads whose chaining tasks hold the cost model to account
+STREAM_MODEL_TASKS = 100
+
+
+def load_trainer():
+    spec = importlib.util.spec_from_file_location(
+        "train_router_torch", REPO / "scripts" / "train_router_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_stream_kernels():
+    """Phase 5r (i): K1 (single segment) and K2 (cDNA, one segment) at
+    B = 1 on the trainer's synthetic tasks: each timed end to end through
+    `chain_scores_task` (pack, upload, launch, readback, v) beside the
+    committed H100 cost model's predict_dev, and held against its plain
+    version on the same planes at STREAM_PLAIN_NS. Returns {kernel: {n:
+    ms}}."""
+    from mm2tpu_torch.mapping.costmodel import get_default_model
+    from mm2tpu_torch.ops import chain_ref
+    from mm2tpu_torch.ops.chain_packed import (chain_scores,
+                                               chain_scores_task, derive_qss,
+                                               pack_tasks16, planes_to_torch)
+    model = get_default_model("map-ont")
+    if model is None:
+        raise AssertionError("no committed H100 cost model "
+                             "(mm2tpu_torch/data/router_params_h100.json)")
+    say("5r", "cost model (map regime): t_dev = %.4g n + %.4g subparts + "
+        "%.4g ms, t_host = %.4g trips + %.4g ms" % (
+            model.k1_dev, model.k2_dev, model.c_dev, model.k_host,
+            model.c_host))
+    mdx, mdy, bw, max_iter, gs = STREAM_CHAIN
+    synth = load_trainer().synth_task
+    rng = np.random.default_rng(0)
+    times = {"chain_v3": {}, "chain_v2": {}}
+    for n in STREAM_NS:
+        a = synth(n, STREAM_DENSITY, rng)
+        _, sub, trip = chain_ref.num_subparts(a, mdx)
+        for name, cdna in (("chain_v3", False), ("chain_v2", True)):
+            def task():
+                return chain_scores_task(a, mdx, mdy, bw, max_iter, gs, cdna,
+                                         1, device=DEVICE)
+            task()
+            reps = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                task()
+                reps.append((time.perf_counter() - t0) * 1e3)
+            ms = float(np.median(reps))
+            times[name][n] = ms
+            check = ""
+            if n in STREAM_PLAIN_NS:
+                N = max(1024, -(-n // 1024) * 1024)
+                hi, lo, yhi, ylo, nn, avg = planes_to_torch(
+                    *pack_tasks16([a], N), DEVICE)
+                qi, span, sid = derive_qss(yhi, ylo)
+                args = (hi, lo, qi.contiguous(), span.contiguous(),
+                        sid.contiguous(), nn, avg)
+                kw = dict(max_dist_x=mdx, max_dist_y=mdy, bw=bw,
+                          iter_cap=min(1024, max_iter), gap_scale=gs,
+                          is_cdna=cdna, n_segs=1)
+                f, p = chain_scores(*args, **kw)
+                f2, p2 = chain_scores(*args, plain=True, **kw)
+                chain_err("%s at B = 1, n = %d" % (name, n), f[:, :n],
+                          p[:, :n], f2[:, :n], p2[:, :n])
+                check = "; f and p equal the plain version's"
+            say("5r", "%s at B = 1, n = %d (subparts %d, trips %d): %.3f ms "
+                "a task end to end (median of 5), predict_dev %.3f ms, "
+                "predict_host %.3f ms%s" % (
+                    name, n, sub, trip, ms, model.predict_dev(n, sub),
+                    model.predict_host(trip), check))
+    return times
+
+
+def phase_stream_model(ref, reads):
+    """Phase 5r (i b): the committed H100 cost model held against phase
+    5's real tasks: the first STREAM_MODEL_TASKS reads' chaining tasks,
+    each timed on the card at B = 1 and in the native host DP as the
+    trainer times them (`time_task`), beside predict_dev and
+    predict_host, and the time its placement would take against the
+    faster side of each task's and against all on the host."""
+    from mm2tpu_torch.mapping.costmodel import get_default_model
+    trainer = load_trainer()
+    model = get_default_model("map-ont")
+    tasks = trainer.real_tasks(ref, reads, limit=STREAM_MODEL_TASKS)
+    rows = np.array([trainer.time_task(a, kw, torch.device(DEVICE), 3)
+                     for a, kw in tasks], np.float64)
+    n, sub, trip, dev, host = rows.T
+    p_dev = np.array([model.predict_dev(a, b) for a, b in zip(n, sub)])
+    p_host = np.array([model.predict_host(t) for t in trip])
+    to_dev = p_dev < p_host
+    chosen = np.where(to_dev, dev, host).sum()
+    miss_d = np.maximum(p_dev / dev, dev / p_dev)
+    miss_h = np.maximum(p_host / host, host / p_host)
+    say("5r", "(i) the cost model on phase 5's first %d real tasks (n %d to "
+        "%d, median %d; trips a anchor median %.1f): measured at B = 1 "
+        "median %.3f ms on the card, %.3f ms in the host DP; predict_dev "
+        "misses by median %.3fx, worst %.3fx, %.3f within 2x; predict_host "
+        "by median %.3fx, worst %.3fx, %.3f within 2x; the model sends %d "
+        "to the card and picks the faster side for %.3f of them; its "
+        "placement takes %.3f ms of device+host time, the faster side of "
+        "each %.3f ms, all on the host %.3f ms, all on the card %.3f ms" % (
+            len(rows), n.min(), n.max(), np.median(n),
+            np.median(trip / n), np.median(dev), np.median(host),
+            np.median(miss_d), miss_d.max(), np.mean(miss_d <= 2),
+            np.median(miss_h), miss_h.max(), np.mean(miss_h <= 2),
+            int(to_dev.sum()), np.mean(to_dev == (dev < host)), chosen,
+            np.minimum(dev, host).sum(), host.sum(), dev.sum()))
+
+
+def paf_by_read(lines):
+    out = {}
+    for ln in lines:
+        out.setdefault(ln.split("\t", 1)[0], []).append(ln)
+    return out
+
+
+def stream_run(tmp, tag, ref, reads, *extra):
+    """One -x map-ont PAF run in stream mode on STREAM_THREADS threads:
+    (PAF lines, wall, counts, stages, counters)."""
+    paf = os.path.join(tmp, "stream_%s.paf" % tag)
+    wall, counts, stages, counters = drive(
+        ["-x", "map-ont", "--map-mode", "stream", "-t", str(STREAM_THREADS),
+         *extra, "--device", DEVICE, "-o", paf, ref, reads])
+    with open(paf) as fh:
+        return fh.read().splitlines(), wall, counts, stages, counters
+
+
+def only(phase, what, counts, *on):
+    """Exactly the kernels `on` launched, and no plain version ran."""
+    for k, (launches, plain) in counts.items():
+        if plain or (launches > 0) != (k in on):
+            raise AssertionError("%s: launches/plain-version calls %s"
+                                 % (what, counts))
+    say(phase, "%s: launches %s; plain-version calls 0" % (what, ", ".join(
+        "%s %d" % (k, c[0]) for k, c in counts.items())))
+
+
+def busy_line(what, wall, stages):
+    busy = sum(stages[k][0] for k in ("chain.gpu_busy", "ext.gpu_busy")
+               if k in stages)
+    return "%s: wall %.3f s, chain.gpu_busy %.3f s, card busy %.3f s, idle " \
+        "share %.3f" % (what, wall, stages.get("chain.gpu_busy", (0.0,))[0],
+                        busy, 1 - busy / wall)
+
+
+def phase_stream_path(tmp, ref, reads, lines):
+    """Phase 5r (ii)-(iv) on phase 5's genome and reads, beside phase 5's
+    batch run. Returns K1's launches in (ii)."""
+    ph5 = PH5
+    n_reads = WORKLOAD["n_reads"]
+    # (ii) every task on the card
+    gpu, wall2, counts, stages2, c2 = stream_run(
+        tmp, "gpu", ref, reads, "--chain-backend", "gpu")
+    only("5r", "(ii) --chain-backend gpu", counts, "chain_v3")
+    k1_launches = counts["chain_v3"][0]
+    tasks = c2.get("route.host", 0) + c2.get("chain.launches", 0)
+    if c2.get("route.host", 0) or counts["chain_v3"][0] != \
+            c2.get("chain.launches") or tasks <= 0:
+        raise AssertionError("(ii): route.host %s, chain.launches %s, K1 "
+                             "launches %d" % (c2.get("route.host"),
+                                              c2.get("chain.launches"),
+                                              counts["chain_v3"][0]))
+    if gpu != lines:
+        raise AssertionError("(ii): the stream PAF with --chain-backend gpu "
+                             "differs from phase 5's batch PAF")
+    say("5r", "(ii) --map-mode stream --chain-backend gpu -t %d: PAF (%d "
+        "lines) byte-identical to phase 5's batch PAF; %d tasks, each one "
+        "K1 launch at B = 1, none on the host; %s" % (
+            STREAM_THREADS, len(gpu), tasks, chain_line(stages2, c2)))
+    # (iii) every task on the host
+    native, wall3, counts, stages3, c3 = stream_run(
+        tmp, "native", ref, reads, "--chain-backend", "native")
+    only("5r", "(iii) --chain-backend native", counts)
+    if c3.get("route.gpu") or c3.get("chain.launches"):
+        raise AssertionError("(iii): %s" % c3)
+    # (iv) placed by the committed H100 constants and the card's queue
+    auto, wall4, counts, stages4, c4 = stream_run(tmp, "auto", ref, reads)
+    for k, (launches, plain) in counts.items():
+        if plain or (launches and k != "chain_v3"):
+            raise AssertionError("(iv): launches/plain-version calls %s"
+                                 % counts)
+    mapped = paf_by_read(auto)
+    if len(mapped) < MIN_MAPPED * n_reads:
+        raise AssertionError("(iv): only %d of %d reads mapped"
+                             % (len(mapped), n_reads))
+    g, h = paf_by_read(gpu), paf_by_read(native)
+    names = set(g) | set(h) | set(mapped)
+    neither = sorted(r for r in names if mapped.get(r) not in
+                     (g.get(r), h.get(r)))
+    as_gpu = sum(mapped.get(r) == g.get(r) != h.get(r) for r in names)
+    as_host = sum(mapped.get(r) == h.get(r) != g.get(r) for r in names)
+    rechained = int(c4.get("chain.rechained", 0))
+    if len(neither) > rechained:
+        raise AssertionError("(iv): %d reads match neither (ii) nor (iii) "
+                             "but only %d were rechained: %s" % (
+                                 len(neither), rechained, neither[:10]))
+    n_gpu = int(c4.get("route.gpu", 0))
+    n_host = int(c4.get("route.host", 0))
+    say("5r", "(iv) auto, H100 constants, -t %d: %d of %d reads mapped; "
+        "route.gpu %d tasks (%d anchors), route.host %d tasks: %.3f of the "
+        "tasks on the card; K1 launches %d; reads whose lines differ between "
+        "(ii) and (iii): %d, of them as (ii) %d, as (iii) %d; reads matching "
+        "neither %d, rechained reads %d; route stage %.3f s" % (
+            STREAM_THREADS, len(mapped), n_reads, n_gpu,
+            c4.get("route.gpu_anchors", 0), n_host,
+            n_gpu / max(n_gpu + n_host, 1), counts["chain_v3"][0],
+            sum(g.get(r) != h.get(r) for r in names), as_gpu, as_host,
+            len(neither), rechained, stages4.get("route", (0.0,))[0]))
+    for what, wall, st in (("phase 5 batch", ph5["wall"], ph5["stages"]),
+                           ("(ii) stream gpu", wall2, stages2),
+                           ("(iii) stream native", wall3, stages3),
+                           ("(iv) stream auto", wall4, stages4)):
+        say("5r", busy_line(what, wall, st))
+    for what, wall, st, c in (("(ii)", wall2, stages2, c2),
+                              ("(iii)", wall3, stages3, c3),
+                              ("(iv)", wall4, stages4, c4)):
+        report("5r", "%s stream" % what, wall, n_reads, st, c)
+    return k1_launches
+
+
+def phase_stream_ext(tmp, ref, reads):
+    """Phase 5r (v): SAM in stream mode with one fill a launch, K3 on the
+    first map-ont reads and K4 on seeded spliced reads (chained on K1
+    and K2), each against --align-backend host. Returns the launches of
+    K3, K4 and K2 in the device runs."""
+    recs = read_fasta(reads)[:STREAM_SAM_READS]
+    sub = os.path.join(tmp, "stream_sam_reads.fa")
+    write_reads(sub, recs)
+    tx = make_spliced_reads(ref, os.path.join(tmp, "stream_tx.fa"),
+                            STREAM_SPLICE_READS, seed=13)
+    out = {}
+    for preset, qry, chain, ext in (("map-ont", sub, "chain_v3",
+                                     "ksw2_extd2"),
+                                    ("splice", tx, "chain_v2",
+                                     "ksw2_exts2")):
+        sams, walls = {}, {}
+        for backend in ("gpu", "host"):
+            path = os.path.join(tmp, "stream_%s_%s.sam" % (preset, backend))
+            walls[backend], counts, stages, c = drive(
+                ["-x", preset, "-a", "--map-mode", "stream", "-t",
+                 str(STREAM_THREADS), "--chain-backend", "gpu",
+                 "--align-backend", backend, "--align-tpu-min-mat", "1",
+                 "--device", DEVICE, "-o", path, ref, qry])
+            with open(path) as fh:
+                sams[backend] = fh.read()
+            if backend == "gpu":
+                only("5r", "(v) -x %s -a, stream, --align-backend gpu"
+                     % preset, counts, chain, ext)
+                fills = int(c.get("ext.fills", 0))
+                if fills <= 0 or counts[ext][0] != fills or \
+                        c.get("ext.dispatches") != fills or \
+                        c.get("ext.host_fills", 0):
+                    raise AssertionError("(v) %s: %s launches %d, ext.fills "
+                                         "%s, ext.dispatches %s, "
+                                         "ext.host_fills %s" % (
+                                             preset, ext, counts[ext][0],
+                                             c.get("ext.fills"),
+                                             c.get("ext.dispatches"),
+                                             c.get("ext.host_fills")))
+                out[ext] = counts[ext][0]
+                if chain == "chain_v2":
+                    out[chain] = counts[chain][0]
+                busy = stages.get("ext.gpu_busy", (0.0,))[0]
+                say("5r", "(v) -x %s -a: %d fills, each one %s launch, none "
+                    "on the host; ext.gpu_busy %.3f s (%.3f ms a launch)" % (
+                        preset, fills, ext, busy, busy * 1e3 / fills))
+        if strip_pg(sams["gpu"]) != strip_pg(sams["host"]):
+            raise AssertionError("(v) -x %s: the stream SAM through %s "
+                                 "differs from the host extension's"
+                                 % (preset, ext))
+        body = [ln for ln in sams["gpu"].splitlines()
+                if ln and not ln.startswith("@")]
+        say("5r", "(v) -x %s -a on %d reads: SAM through %s (%d records) "
+            "byte-identical to the host extension's without @PG; walls %.3f "
+            "s against %.3f s" % (preset, STREAM_SAM_READS if preset ==
+                                  "map-ont" else STREAM_SPLICE_READS, ext,
+                                  len(body), walls["gpu"], walls["host"]))
+    return out
+
+
+def phase_split_prefix(tmp, ref, reads):
+    """Phase 5r (vi): --split-prefix on phase 5's genome with -I one base
+    short of its first contigs that hold half of it (all but the last,
+    if the last holds more), so that the index comes in two parts: a
+    part takes contigs until it holds more than -I bases."""
+    from mm2tpu_torch import cli
+    cum = np.cumsum([len(sq) for _, sq in read_fasta(ref)])
+    if len(cum) < 2:
+        raise AssertionError("(vi): the genome has one contig")
+    k = min(int(np.searchsorted(cum, cum[-1] / 2)), len(cum) - 2)
+    size = int(cum[k]) - 1
+    prefix = os.path.join(tmp, "split")
+    paf = os.path.join(tmp, "split.paf")
+    parts = []
+    merge = cli._split_merge
+
+    def counted(query, mo, n_parts, rg, out):
+        parts.append(n_parts)
+        return merge(query, mo, n_parts, rg, out)
+
+    cli._split_merge = counted
+    try:
+        wall, counts, stages, c = drive(
+            ["-x", "map-ont", "--split-prefix", prefix, "-I", str(size),
+             "--device", DEVICE, "-o", paf, ref, reads])
+    finally:
+        cli._split_merge = merge
+    left = [f for f in os.listdir(tmp) if f.endswith(".tmp")]
+    with open(paf) as fh:
+        mapped = paf_by_read(fh.read().splitlines())
+    n_reads = WORKLOAD["n_reads"]
+    if parts != [2] or left or len(mapped) < MIN_MAPPED * n_reads:
+        raise AssertionError("(vi): parts %s, .tmp files left %s, %d of %d "
+                             "reads mapped" % (parts, left, len(mapped),
+                                               n_reads))
+    only("5r", "(vi) --split-prefix", counts, "chain_v3")
+    say("5r", "(vi) --split-prefix, -I %d: 2 index parts, %d of %d reads "
+        "mapped, no .tmp file left; wall %.3f s" % (
+            size, len(mapped), n_reads, wall))
+
 
 
 def read_fasta(path):
@@ -1512,17 +1880,6 @@ def drive(argv, profile=True, **main_kw):
     return wall, counts, stages, counters
 
 
-def only_k2(phase, what, counts, *also):
-    """Only K2 (and the kernels in `also`) launched, no plain version."""
-    for k, (launches, plain) in counts.items():
-        want = k == "chain_v2" or k in also
-        if plain or (launches > 0) != want:
-            raise AssertionError("%s: launches/plain-version calls %s"
-                                 % (what, counts))
-    say(phase, "%s: launches %s; plain-version calls 0" % (what, ", ".join(
-        "%s %d" % (k, c[0]) for k, c in counts.items())))
-
-
 def chain_line(stages, counters):
     """The chaining counters of one --profile run: launches, anchors, the
     anchors the launches carried with their padding, the launches'
@@ -1604,7 +1961,7 @@ def phase_sr(tmp, ref):
     paf = os.path.join(tmp, "sr.paf")
     wall, counts, stages, counters = drive(
         ["-x", "sr", "--device", DEVICE, "-o", paf, ref, r1, r2])
-    only_k2(8, "PAF", counts)
+    only(8, "PAF", counts, "chain_v2")
     with open(paf) as fh:
         lines = fh.read().splitlines()
     mapped = {ln.split("\t", 1)[0] for ln in lines if ln}
@@ -1624,13 +1981,13 @@ def phase_sr(tmp, ref):
                                "--align-tpu-min-mat", "1", "--device",
                                DEVICE, "-o", out, ref, *sam_q])
         if backend == "gpu":
-            only_k2(8, "SAM through K3", c, "ksw2_extd2")
+            only(8, "SAM through K3", c, "chain_v2", "ksw2_extd2")
             if ctr.get("ext.fills", 0) <= 0:
                 raise AssertionError("-x sr SAM: no fill reached K3")
             report(8, "SAM through K3", w, 2 * SR_SAM_PAIRS, st, ctr)
             say(8, d2_line(st, ctr))
         else:
-            only_k2(8, "SAM through the host extension", c)
+            only(8, "SAM through the host extension", c, "chain_v2")
             say(8, "SAM through the host extension: %.3f s wall, %.3f "
                 "reads/s" % (w, 2 * SR_SAM_PAIRS / w))
         with open(out) as fh:
@@ -1670,7 +2027,7 @@ def phase_splice(tmp, ref):
     paf = os.path.join(tmp, "tx.paf")
     wall, counts, stages, counters = drive(
         ["-x", "splice", "--device", DEVICE, "-o", paf, ref, reads])
-    only_k2(9, "PAF", counts)
+    only(9, "PAF", counts, "chain_v2")
     with open(paf) as fh:
         lines = fh.read().splitlines()
     mapped = {ln.split("\t", 1)[0] for ln in lines if ln}
@@ -1687,7 +2044,7 @@ def phase_splice(tmp, ref):
                                backend, "--align-tpu-min-mat", "1",
                                "--device", DEVICE, "-o", out, ref, reads])
         if backend == "gpu":
-            only_k2(9, "SAM through K4", c, "ksw2_exts2")
+            only(9, "SAM through K4", c, "chain_v2", "ksw2_exts2")
             if ctr.get("ext.fills", 0) <= 0 or ctr.get("ext.host_fills", 0):
                 raise AssertionError(
                     "-x splice SAM: ext.fills %s, ext.host_fills %s" % (
@@ -1703,7 +2060,7 @@ def phase_splice(tmp, ref):
                     st["ext.s2_kernel"][0] * 1e6 / ctr["ext.s2_rows"]))
             k4 = c["ksw2_exts2"][0]
         else:
-            only_k2(9, "SAM through the host splice extension", c)
+            only(9, "SAM through the host splice extension", c, "chain_v2")
             report(9, "SAM through the host splice extension", w,
                    SPLICE_READS, st, ctr)
         with open(out) as fh:
@@ -1726,7 +2083,7 @@ def phase_splice(tmp, ref):
     w, c, st, ctr = drive(["-x", "splice", "-c", "--align-backend", "gpu",
                            "--align-tpu-min-mat", "1", "--device", DEVICE,
                            "-o", cpaf, ref, c_reads])
-    only_k2(9, "PAF with CIGARs (-c) through K4", c, "ksw2_exts2")
+    only(9, "PAF with CIGARs (-c) through K4", c, "chain_v2", "ksw2_exts2")
     if ctr.get("ext.fills", 0) <= 0 or ctr.get("ext.host_fills", 0):
         raise AssertionError("-x splice -c: ext.fills %s, ext.host_fills %s"
                              % (ctr.get("ext.fills"),
@@ -1829,12 +2186,14 @@ def kernel_line(name, source, replaces, launches, max_err, times, work,
             "library_ms": None}
 
 
-PHASES = ("1", "2", "3", "3b", "4", "5", "5s", "6", "7", "8", "9", "10")
+PHASES = ("1", "2", "3", "3b", "4", "5", "5s", "5r", "6", "7", "8", "9",
+          "10")
 # the deep parity runs (paths mapped again through the plain versions):
 # run with --deep or when named in --phases
 DEEP = ("7", "10")
 # phases that take another phase's outputs
-NEEDS = {"5s": ("5",), "6": ("5",), "7": ("5", "6"), "10": ("8", "9")}
+NEEDS = {"5s": ("5",), "5r": ("5",), "6": ("5",), "7": ("5", "6"),
+         "10": ("8", "9")}
 
 
 def parse_phases(argv):
@@ -1876,7 +2235,7 @@ def main(argv=None) -> int:
     k3 = phase_ext_kernel_vs_plain() if "3" in run else None
     k4 = phase_exts2_kernel_vs_plain() if "3b" in run else None
     k2 = phase_v2_kernel_vs_plain() if "4" in run else None
-    launches = ext_launches = sr = tx = seed = None
+    launches = ext_launches = sr = tx = seed = stream = None
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         if "5" in run:
             ref, reads, lines, launches, ph5 = phase_main_path(tmp)
@@ -1884,6 +2243,12 @@ def main(argv=None) -> int:
             seed, outside, big = phase_seed_kernels(tmp, ref, reads, clock)
             seed_launches = phase_seed_path(tmp, ref, reads, lines, ph5,
                                             (outside, big))
+        if "5r" in run:
+            stream_times = phase_stream_kernels()
+            phase_stream_model(ref, reads)
+            stream = {"chain_v3": phase_stream_path(tmp, ref, reads, lines)}
+            stream.update(phase_stream_ext(tmp, ref, reads))
+            phase_split_prefix(tmp, ref, reads)
         if "6" in run:
             sam, ext_launches = phase_sam(tmp, ref, reads)
         if "7" in run:
@@ -1953,6 +2318,15 @@ def main(argv=None) -> int:
             # output: the sort step that follows the build
             line["library_ms"] = lib_ms
             lines.append(line)
+    for line in lines:
+        # launches in phase 5r's stream runs: K1 in (ii), K2, K3 and K4 in
+        # (v); the stream mode seeds on the host
+        line["stream_launches"] = None if stream is None else \
+            stream.get(line["name"], 0)
+        if stream is not None and line["name"] in stream_times:
+            # B = 1, end to end, on the trainer's tasks (phase 5r (i))
+            line["b1_ms"] = {str(n): ms for n, ms in
+                             stream_times[line["name"]].items()}
     print(json.dumps({"kernels": lines}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

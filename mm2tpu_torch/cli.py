@@ -1,17 +1,25 @@
-"""Command-line entry point of the port: minimap2-style arguments, batch
-mode, chaining (and with `--align-backend gpu` the extension fills) on a
-torch device.
+"""Command-line entry point of the port: minimap2-style arguments,
+chaining (and with `--align-backend gpu` the extension fills) on a torch
+device, in batch mode (the default) or stream mode.
 
-Counterpart of `mm2tpu/cli.py` (`main`, `_map_batch`, `_map_all`'s batch
-branch). The option surface (`build_parser`, `_parse_num`, `apply_args`),
-the index reader (`index_parts`, `_mmi_cached_parts`), `_revcomp_bseq`
-and the emission (`emit`) are the port's verbatim copies of that
-module's; `apply_args` leaves out `--router-params`, the cost model of
-the stream mode's routing (ROADMAP M3), which the port refuses. Added:
-`--device {cuda,cpu}` and the value `gpu` of `--align-backend` and of
-`--seed-backend`. Usage:
+Counterpart of `mm2tpu/cli.py` (`main`, `_map_batch`, `_map_one_frag`,
+`_map_all`, `_split_merge`, `cli_entry`). The option surface
+(`build_parser`, `_parse_num`, `apply_args`), the index reader
+(`index_parts`, `_mmi_cached_parts`), `_revcomp_bseq` and the emission
+(`emit`) are the port's verbatim copies of that module's; `--router-params`
+loads the port's cost model (`mapping/costmodel.py`). Added: `--device
+{cuda,cpu}` and the value `gpu` of `--align-backend`, `--seed-backend`
+and `--chain-backend`. The default map mode is `batch` (the JAX
+package's is `stream`). In `--map-mode stream` every chaining task is
+placed on its own (`--chain-backend auto`: by the H100 cost model and
+the card's queue; `gpu`: all on K1/K2 at B = 1; `native`, `python`: the
+host DP), on a pool of `-t` threads whose results are emitted in input
+order. `--split-prefix` works in both modes. Usage:
 
     python -m mm2tpu_torch.cli -x map-ont [--device cuda] ref.fa reads.fa
+    python -m mm2tpu_torch.cli -x map-ont --map-mode stream \
+        [--chain-backend auto|gpu|native|python] [--router-params JSON] \
+        [-t N] [--device cuda] ref.fa reads.fa
     python -m mm2tpu_torch.cli -x map-ont -a --align-backend gpu \
         [--align-tpu-min-mat N] [--device cuda] ref.fa reads.fa
     python -m mm2tpu_torch.cli -x sr [-a [--align-backend gpu]] \
@@ -23,9 +31,12 @@ the stream mode's routing (ROADMAP M3), which the port refuses. Added:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 from typing import List, Optional
+
+import torch
 
 from . import __version__
 from .device import DEVICES, resolve_device
@@ -33,6 +44,7 @@ from .index.build import build_index, save_index, MM_I_HPC, MM_I_NO_SEQ
 from .index.mmi import write_mmi, MAGIC
 from .io.bseq import FastxReader, read_fastx
 from .io.format import write_paf, write_sam, sam_header
+from .mapping import costmodel
 from .options import (set_opt, mapopt_update, check_opt, MapOptions, IdxOptions,
                       MM_F_CIGAR, MM_F_OUT_SAM, MM_F_OUT_CG, MM_F_OUT_CS,
                       MM_F_OUT_CS_LONG, MM_F_OUT_MD, MM_F_NO_PRINT_2ND,
@@ -379,6 +391,10 @@ def apply_args(args, io: IdxOptions, mo: MapOptions) -> None:
             mo.e2 = int(parts[1])
     if args.chain_backend:
         mo.chain_backend = args.chain_backend
+    if args.router_params:
+        from .mapping import costmodel
+        costmodel.set_default_model(costmodel.CostModel.load(
+            args.router_params))
     if args.align_backend:
         mo.align_backend = args.align_backend
     if args.seed_backend:
@@ -551,16 +567,9 @@ def _unsupported(args, mo: MapOptions) -> Optional[str]:
     if args.align_backend == "tpu":
         return ("--align-backend tpu (the Pallas kernels; the port's device "
                 "extension is --align-backend gpu)")
-    if args.chain_backend:
-        return ("--chain-backend (per-task routing of the stream mode, "
-                "ROADMAP M3; the port always chains in batch mode)")
-    if args.router_params:
-        return ("--router-params (the cost model of the stream mode's "
-                "per-task routing, ROADMAP M3)")
-    if args.map_mode == "stream":
-        return "--map-mode stream (per-task routing, ROADMAP M3)"
-    if args.split_prefix:
-        return "--split-prefix (ROADMAP M1)"
+    if args.chain_backend == "tpu":
+        return ("--chain-backend tpu (the Pallas chaining kernels; the "
+                "port's device route is --chain-backend gpu)")
     if args.profile_trace:
         return "--profile-trace (torch.profiler tracing, ROADMAP M10)"
     return None
@@ -582,6 +591,17 @@ def build_torch_parser():
                 "reads) of at least --align-tpu-min-mat cells, batched "
                 "across reads, on --device (bit-exact); host = the native "
                 "extension")
+    act = next(a for a in p._actions if a.dest == "chain_backend")
+    act.choices = ["auto", "tpu", "gpu", "native", "python"]
+    act.help = ("--map-mode stream: where each chaining task runs; auto = "
+                "by the cost model (--router-params, else the H100 "
+                "constants of mm2tpu_torch/data) and the card's queue, gpu "
+                "= K1/K2 on --device, native/python = the exact host DP "
+                "[auto]")
+    act = next(a for a in p._actions if a.dest == "map_mode")
+    act.help = ("batch = one chaining launch per size bucket of reads; "
+                "stream = each read on its own, each chaining task placed "
+                "by --chain-backend [batch]")
     act = next(a for a in p._actions if a.dest == "seed_backend")
     act.choices = ["host", "tpu", "gpu"]
     act.help = ("gpu = the index probe, the anchor build and sort and the "
@@ -602,7 +622,18 @@ def main(argv: Optional[List[str]] = None, *, chain_fn=None,
     `ops.ksw2_exts2.exts2_batch`), `seed_fn` the fused seeding and
     chaining of every bucket of `--seed-backend gpu` (see
     `ops.seed_device.seed_chain`): a check runs the same arguments
-    through the kernels' plain versions with them."""
+    through the kernels' plain versions with them. They apply to batch
+    mode only. The cost model that `--router-params` loads, and a
+    finished warm-up of the card with its failure, are dropped when the
+    call returns."""
+    try:
+        return _main(argv, chain_fn, ext_fn, exts2_fn, seed_fn)
+    finally:
+        costmodel.reset_default_model()
+        costmodel.reset_probe()
+
+
+def _main(argv, chain_fn, ext_fn, exts2_fn, seed_fn) -> int:
     argv = argv if argv is not None else sys.argv[1:]
     # ketopt optional-argument semantics (as mm2tpu.cli.main)
     argv = ["--cs=short" if a == "--cs" else a for a in argv]
@@ -630,6 +661,17 @@ def main(argv: Optional[List[str]] = None, *, chain_fn=None,
         print("[ERROR] mm2tpu_torch does not support %s yet" % why,
               file=sys.stderr)
         return 1
+    if args.map_mode == "stream":
+        # device seeding is batch-only, as in the JAX package; the batch
+        # hooks have no stream counterpart
+        if mo.seed_backend == "gpu":
+            print("[ERROR] --seed-backend gpu runs in --map-mode batch only",
+                  file=sys.stderr)
+            return 1
+        if any(fn is not None for fn in (chain_fn, ext_fn, exts2_fn,
+                                         seed_fn)):
+            raise ValueError("chain_fn, ext_fn, exts2_fn and seed_fn apply "
+                             "to --map-mode batch only")
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
@@ -645,6 +687,8 @@ def main(argv: Optional[List[str]] = None, *, chain_fn=None,
         if out is not sys.stdout:
             out.close()
     if rc == 0:
+        if costmodel.is_cuda(device):
+            costmodel.raise_probe_error()
         if profiling.enabled:
             profiling.report()
         timing.log_trailer(MM_VERSION, "mm2tpu-torch " + " ".join(argv))
@@ -688,14 +732,14 @@ def _run(args, argv, io, mo: MapOptions, device, out, chain_fn,
                   file=sys.stderr)
             return 1
         if first and args.query and (mo.flag & MM_F_OUT_SAM):
-            # multi-part: header without @SQ (main.c:380-390)
+            # multi-part or split-prefix: header without @SQ (main.c:380-390)
             cmdline = "minimap2 " + " ".join(argv)
-            print(sam_header(mi if last else None, args.rg, MM_VERSION,
-                             cmdline), file=out)
+            hdr_mi = mi if last and not mo.split_prefix else None
+            print(sam_header(hdr_mi, args.rg, MM_VERSION, cmdline), file=out)
             from .io import format as _fmt
             if _fmt._RG_FAILED:  # bad -R: header printed, then exit 1
                 return 1
-            if not last:
+            if not last and not mo.split_prefix:
                 print("[WARNING] For a multi-part index, no @SQ lines will "
                       "be outputted. Please use --split-prefix.",
                       file=sys.stderr)
@@ -715,10 +759,15 @@ def _run(args, argv, io, mo: MapOptions, device, out, chain_fn,
         if args.query:
             mapopt_update(mo, mi)
             n_mapped = map_all(args.query, mi, mo, out, device, chain_fn,
-                               ext_fn, exts2_fn, seed_fn)
+                               ext_fn, exts2_fn, seed_fn, part_idx=n_parts,
+                               n_threads=max(1, args.t),
+                               map_mode=args.map_mode)
             timing.log("worker_pipeline", "mapped %d sequences" % n_mapped)
         n_parts += 1
         mi = nxt
+
+    if args.query and mo.split_prefix:
+        _split_merge(args.query, mo, n_parts, args.rg, out)
     return 0
 
 
@@ -770,10 +819,73 @@ def map_batch(mi, mo: MapOptions, batch, consume, device,
         consume(frag, res)
 
 
+def map_one_frag(mi, mo: MapOptions, frag, device):
+    """Map one fragment in stream mode (mm2tpu.cli._map_one_frag, the body
+    of worker_for, map.c:427-467), its chaining tasks placed one by one
+    and its device work on `device`. Pure with respect to shared state,
+    so it can run on any mapping thread."""
+    from .mapping.pipeline import map_frag
+
+    if mo.dbg_print_qname:  # --print-qname (map.c:434-435)
+        import threading
+        tid = threading.get_ident() % 1000
+        print(f"QR\t{frag[0].name}\t{tid}\t{len(frag[0].seq)}",
+              file=sys.stderr)
+    # orient mates per pe_ori before joint chaining (map.c:436-441)
+    flip = [len(frag) == 2 and bool((mo.pe_ori >> (1 - j)) & 1)
+            for j in range(len(frag))]
+    for j, f in enumerate(flip):
+        if f:
+            _revcomp_bseq(frag[j])
+    seqs = [s.seq for s in frag]
+    if (mo.flag & MM_F_INDEPEND_SEG) and len(frag) > 1:
+        # map each segment independently (map.c:442-447)
+        res = map_frag(mi, [seqs[0]], mo, frag[0].name, device)
+        res.rep_lens = [res.rep_len]
+        for j in range(1, len(frag)):
+            rj = map_frag(mi, [seqs[j]], mo, frag[j].name, device)
+            res.regs.append(rj.regs[0])
+            res.rep_lens.append(rj.rep_len)
+    else:
+        res = map_frag(mi, seqs, mo, frag[0].name, device)
+    # flip the query strand/coords back to the read's own strand
+    # (map.c:455-466)
+    for j, f in enumerate(flip):
+        if f:
+            _revcomp_bseq(frag[j])
+            for r in res.regs[j]:
+                r.qs, r.qe = len(seqs[j]) - r.qe, len(seqs[j]) - r.qs
+                r.rev = not r.rev
+    return res
+
+
 def map_all(query_paths, mi, mo: MapOptions, out, device,
-            chain_fn=None, ext_fn=None, exts2_fn=None, seed_fn=None) -> int:
+            chain_fn=None, ext_fn=None, exts2_fn=None, seed_fn=None, *,
+            part_idx: int = 0, n_threads: int = 1,
+            map_mode: str = "batch") -> int:
     """Map every query mini-batch against one index part and emit in
-    input order. Returns the number of sequences mapped."""
+    input order, or with --split-prefix dump the part's raw hits to its
+    temporary file (mm2tpu.cli._map_all, map.c:571-585, mm_split_init).
+    Returns the number of sequences mapped.
+
+    Batch mode maps a mini-batch at a time (`map_batch`). Stream mode
+    maps each fragment on its own (`map_one_frag`): with one thread in
+    this thread, with more on a pool of `n_threads` fed by a reader
+    thread, whose results are consumed in submission order (the
+    reference's 3-step kt_pipeline, map.c:526-621). With
+    `--align-backend gpu` and `--profile`, the fills left on the host's
+    native extension are counted as `ext.host_fills`."""
+    import pickle
+    import queue as queue_mod
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from .mapping.pipeline import _count_host_fills
+
+    dump = None
+    if mo.split_prefix:
+        dump = dict(k=mi.k, seq=[(s.name, s.length) for s in mi.seq],
+                    reads=[])
     reader = FastxReader(query_paths, mo.mini_batch_size,
                          bool(mo.flag & MM_F_FRAG_MODE))
     n_mapped = 0
@@ -781,18 +893,142 @@ def map_all(query_paths, mi, mo: MapOptions, out, device,
     def consume(frag, res):
         nonlocal n_mapped
         n_mapped += len(frag)
-        with profiling.stage("emit"):
-            emit(mi, mo, frag, res, out)
+        if dump is not None:
+            for j in range(len(frag)):
+                dump["reads"].append(
+                    (res.regs[j], res.rep_len, res.frag_gap))
+        else:
+            with profiling.stage("emit"):
+                emit(mi, mo, frag, res, out)
 
-    for batch in reader.batches():
-        map_batch(mi, mo, batch, consume, device, chain_fn, ext_fn,
-                  exts2_fn, seed_fn)
+    if map_mode == "batch":
+        for batch in reader.batches():
+            map_batch(mi, mo, batch, consume, device, chain_fn, ext_fn,
+                      exts2_fn, seed_fn)
+    else:
+        counted = _count_host_fills() \
+            if mo.align_backend == "gpu" and (mo.flag & MM_F_CIGAR) \
+            else contextlib.nullcontext()
+        on_device = torch.cuda.device(device) if device.type == "cuda" \
+            else contextlib.nullcontext()
+
+        def one(frag):
+            # a pool thread does not inherit the caller's CUDA device
+            with on_device:
+                return map_one_frag(mi, mo, frag, device)
+
+        with counted:
+            if n_threads <= 1:
+                for batch in reader.batches():
+                    for frag in batch:
+                        consume(frag, one(frag))
+            else:
+                batches: queue_mod.Queue = queue_mod.Queue(maxsize=2)
+
+                def produce():
+                    try:
+                        for batch in reader.batches():
+                            batches.put(batch)
+                        batches.put(None)
+                    except BaseException as e:  # surface reader errors
+                        batches.put(e)
+
+                threading.Thread(target=produce, daemon=True).start()
+                with ThreadPoolExecutor(n_threads) as ex:
+                    while True:
+                        batch = batches.get()
+                        if batch is None:
+                            break
+                        if isinstance(batch, BaseException):
+                            raise batch
+                        for frag, res in zip(batch, ex.map(one, batch)):
+                            consume(frag, res)
+    if dump is not None:
+        with open(f"{mo.split_prefix}.{part_idx:04d}.tmp", "wb") as f:
+            pickle.dump(dump, f)
     return n_mapped
 
 
+# ---- copied verbatim from mm2tpu/cli.py ----
+
+def _split_merge(query_paths, mo: MapOptions, n_parts: int, rg, out) -> None:
+    """--split-prefix merge pass (mm_split_merge, map.c:469-524,671-714):
+    re-read queries in order, concatenate each read's per-part hits with
+    rid renumbering, then re-sort/re-select/re-mapq and emit."""
+    import os
+    import pickle
+    from .index.build import MMIndex, RefSeq
+    from .mapping import hit as hit_mod
+    from .mapping.pipeline import FragResult
+
+    parts = []
+    for j in range(n_parts):
+        with open(f"{mo.split_prefix}.{j:04d}.tmp", "rb") as f:
+            parts.append(pickle.load(f))
+    merged = MMIndex(w=0, k=parts[0]["k"], b=0, flag=0)
+    rid_shift, off = [], 0
+    for pt in parts:
+        rid_shift.append(off)
+        for name, length in pt["seq"]:
+            merged.seq.append(RefSeq(name=name, offset=0, length=length))
+            off += 1
+    if mo.flag & MM_F_OUT_SAM:
+        for s in merged.seq:
+            print(f"@SQ\tSN:{s.name}\tLN:{s.length}", file=out)
+
+    frag_mode = bool(mo.flag & MM_F_FRAG_MODE)
+    reader = FastxReader(query_paths, mo.mini_batch_size, frag_mode)
+    cursor = 0
+    for batch in reader.batches():
+        for frag in batch:
+            res = FragResult(regs=[])
+            res.rep_lens = []
+            frag_gap0 = 0
+            for i in range(len(frag)):
+                regs, rep_len = [], 0
+                for j, pt in enumerate(parts):
+                    pregs, prep, pgap = pt["reads"][cursor + i]
+                    for r in pregs:
+                        r.rid += rid_shift[j]
+                        regs.append(r)
+                    rep_len = max(rep_len, prep)
+                    if j == 0:
+                        frag_gap0 = pgap
+                regs = hit_mod.hit_sort(regs, mo.alt_drop)
+                hit_mod.set_parent(regs, mo.mask_level, mo.mask_len,
+                                   mo.a * 2 + mo.b,
+                                   bool(mo.flag & MM_F_HARD_MLEVEL),
+                                   mo.alt_drop)
+                if not (mo.flag & MM_F_ALL_CHAINS):
+                    regs = hit_mod.select_sub(regs, mo.pri_ratio,
+                                              merged.k * 2, mo.best_n)
+                    hit_mod.set_sam_pri(regs)
+                hit_mod.set_mapq(regs, mo.min_chain_score, mo.a, rep_len,
+                                 bool(mo.flag & MM_F_SR))
+                res.regs.append(regs)
+                # the max-over-parts rep_len feeds mapQ only; the merge
+                # pipeline's s->rep_len stays zero-initialized, so merged
+                # records always print rl:i:0 (map.c:479-505,592-603)
+                res.rep_lens.append(0)
+            cursor += len(frag)
+            if len(frag) == 2 and mo.pe_ori >= 0 and (mo.flag & MM_F_CIGAR):
+                from .mapping.pe import pair
+                pair(frag_gap0, mo.pe_bonus, mo.a * 2 + mo.b, mo.a,
+                     [len(s.seq) for s in frag], res.regs)
+            emit(merged, mo, frag, res, out)
+    for j in range(n_parts):
+        os.remove(f"{mo.split_prefix}.{j:04d}.tmp")
+
+
 def cli_entry():
-    """Process entry point (python -m mm2tpu_torch.cli, mm2tpu-torch)."""
-    sys.exit(main())
+    """Process entry point (python -m mm2tpu_torch.cli, mm2tpu-torch). A
+    stream run may leave the backend warm-up thread building the kernels;
+    the process waits for it and fails if it failed."""
+    rc = main()
+    costmodel.join_backend_probe()
+    if rc == 0:
+        costmodel.raise_probe_error()
+    sys.exit(rc)
 
 
 if __name__ == "__main__":

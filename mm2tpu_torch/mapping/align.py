@@ -7,10 +7,13 @@ seed-to-seed gap fills with two-pass Z-drop and inversion detection, right
 extension, CIGAR fixups and stats (align.c:565-920).
 
 The port's copy of `mm2tpu/mapping/align.py`, verbatim apart from its
-imports and its TPU branches: the two `ksw2_pallas` calls of
-`align_pair` (splice and extd2 fills under `--align-backend tpu`) are
-not copied; an extd2 or splice fill of `--align-backend gpu` reaches the
-device through the port's `extbatch.current()`.
+imports and its TPU branches. An extd2 or splice fill of `--align-backend
+gpu` reaches the device through the port's `extbatch.current()` when a
+batcher is in scope (batch mode); without one (stream mode) a fill of at
+least `--align-tpu-min-mat` cells runs alone on the port's
+`ops.ksw2_exts2.exts2_batch` or `ops.ksw2_extd2.extd2_batch` (K4 or K3
+on a CUDA device) on `extbatch.fill_device()`, where the JAX package
+calls its Pallas `exts2_batch([fill])` and `extd2_batch([fill])`.
 """
 from __future__ import annotations
 
@@ -390,6 +393,8 @@ def _fill_fused_ok(opt: MapOptions, qlen_: int, tlen_: int) -> bool:
         return False
     if opt.max_sw_mat > 0 and qlen_ * tlen_ > opt.max_sw_mat:
         return False
+    if opt.align_backend == "gpu" and qlen_ * tlen_ >= opt.align_tpu_min_mat:
+        return False
     from . import extbatch
     b = extbatch.current()
     if b is not None and qlen_ * tlen_ >= b.min_cells:
@@ -423,6 +428,15 @@ def align_pair(opt: MapOptions, qseq, tseq, junc, mat, w: int,
                                      np.asarray(mat, np.int8), opt.q, opt.e,
                                      opt.q2, opt.noncan, zdrop,
                                      opt.junc_bonus, flag)
+        if opt.align_backend == "gpu" and \
+                qlen * tlen >= opt.align_tpu_min_mat:
+            # no batcher in scope (stream mode): this fill alone on K4
+            from ..ops.ksw2_exts2 import exts2_batch
+            return exts2_batch(
+                [(np.asarray(qseq, np.uint8), np.asarray(tseq, np.uint8),
+                  junc)], np.asarray(mat, np.int8), opt.q, opt.e, opt.q2,
+                opt.noncan, zdrop, opt.junc_bonus, flag,
+                device=extbatch.fill_device())[0]
         if _native_exts2():
             from ..native import lib as native_lib
             return native_lib.ksw_exts2(
@@ -441,6 +455,16 @@ def align_pair(opt: MapOptions, qseq, tseq, junc, mat, w: int,
         return _bat.submit(qseq, tseq, np.asarray(mat, np.int8), opt.q,
                            opt.e, opt.q2, opt.e2, w, zdrop, end_bonus,
                            flag)
+    if opt.align_backend == "gpu" and \
+            qlen * tlen >= opt.align_tpu_min_mat:
+        # no batcher in scope (stream mode): this fill alone on K3 (bit-
+        # exact vs the host ports, incl. the extz2 single-affine case —
+        # extd2 with q2=q, e2=e is cell-identical)
+        from ..ops.ksw2_extd2 import extd2_batch
+        return extd2_batch(
+            [(np.asarray(qseq, np.uint8), np.asarray(tseq, np.uint8))],
+            np.asarray(mat, np.int8), opt.q, opt.e, opt.q2, opt.e2, w,
+            zdrop, end_bonus, flag, device=extbatch.fill_device())[0]
     if _native_ksw():
         # native C++ extd2 (bit-identical to the NumPy oracle; the
         # equal-cost identity serves the extz2 branch too)

@@ -14,6 +14,10 @@ group is full. A flush runs through the port's
 batcher's device, and groups are flushed one at a time, so that fills
 gather while the device works. Smaller fills run inline on the host's
 native extension.
+
+Without a batcher (the stream mode), `fill_scope(device)` names the
+device on which `align_pair` runs each fill of at least
+`--align-tpu-min-mat` cells, one fill a launch (`fill_device()`).
 """
 from __future__ import annotations
 
@@ -160,6 +164,29 @@ _TLS = threading.local()
 def current() -> Optional[TorchExtBatcher]:
     """The batcher installed on this thread by `worker_scope`, if any."""
     return getattr(_TLS, "batcher", None)
+
+
+def fill_device():
+    """The device installed on this thread by `fill_scope`; raises when
+    there is none (a fill of --align-backend gpu never stays on the host
+    for want of one)."""
+    dev = getattr(_TLS, "device", None)
+    if dev is None:
+        raise RuntimeError("--align-backend gpu: a device fill outside a "
+                           "batcher needs fill_scope(device)")
+    return dev
+
+
+@contextlib.contextmanager
+def fill_scope(device):
+    """Install `device` (None: no device) for the one-fill device launches
+    of align_pair on this thread (the stream mode's)."""
+    prev = getattr(_TLS, "device", None)
+    _TLS.device = None if device is None else torch.device(device)
+    try:
+        yield
+    finally:
+        _TLS.device = prev
 
 
 class worker_scope:

@@ -9,10 +9,17 @@ re-seed trigger), `_post_chain` (everything after chaining) and
 `_align_regs`, with `BUCKETS`/`bucket_for` from
 `mm2tpu/parallel/batching.py`. Its device seeding round
 (`_seed_device_eligible`, `_seed_device_round`) is ported on
-`ops/seed_device.py`; its `map_frag` and mesh steps are not copied. The
-per-bucket chaining call changes, and with `--align-backend gpu` the
-reads are aligned on a thread pool whose extension fills meet in a
+`ops/seed_device.py`; its mesh steps are not copied. The per-bucket
+chaining call changes, and with `--align-backend gpu` the reads are
+aligned on a thread pool whose extension fills meet in a
 `TorchExtBatcher`.
+
+The stream mode's per-read path, `map_frag` with `_chain_ctx` and
+`_chain_ctx_inner`, is the JAX package's, with the run's device passed
+down: each chaining task is placed by `mapping.chain.chain_dp` (the
+host DP, or K1/K2 at B = 1 on the device), and with `--align-backend
+gpu` each fill of at least `--align-tpu-min-mat` cells runs alone on
+the device (`extbatch.fill_scope`).
 """
 from __future__ import annotations
 
@@ -28,7 +35,7 @@ import torch
 from ..device import resolve_device
 from ..index.build import MMIndex
 from ..native import lib as native
-from ..ops import chain_ref
+from ..ops import card_spans, chain_ref, span_seconds
 from ..ops import seed_device as sd
 from ..ops.chain_packed import (WINDOW, chain_scores_packed, pack_tasks16,
                                 planes_to_torch, unpack_prel, v_carry_host)
@@ -38,9 +45,9 @@ from ..options import (MapOptions, MM_F_SPLICE, MM_F_SR, MM_F_CIGAR,
 from ..utils import profiling
 from ..utils.hashing import reg_hash
 from . import hit as hit_mod
-from .chain import chain_gaps
+from .chain import chain_dp, chain_gaps
 from .esterr import est_err
-from .extbatch import TorchExtBatcher, worker_scope
+from .extbatch import TorchExtBatcher, fill_scope, worker_scope
 from .hit import Region
 from .seed import SeedResult, collect_minimizers, collect_seed_hits
 
@@ -117,6 +124,21 @@ def _prepare(mi: MMIndex, seqs: Sequence[str], opt: MapOptions,
                     mv=mv, sr=sr, gap_qry=gap_qry, gap_ref=gap_ref)
 
 
+def _chain_ctx(ctx: _FragCtx, opt: MapOptions, anchors: np.ndarray,
+               device=None):
+    with profiling.stage("chain"):
+        return _chain_ctx_inner(ctx, opt, anchors, device)
+
+
+def _chain_ctx_inner(ctx: _FragCtx, opt: MapOptions, anchors: np.ndarray,
+                     device=None):
+    return chain_dp(ctx.gap_ref, ctx.gap_qry, opt.bw, opt.max_chain_skip,
+                    opt.max_chain_iter, opt.min_cnt, opt.min_chain_score,
+                    opt.chain_gap_scale, ctx.is_splice, ctx.n_segs,
+                    anchors, backend=opt.chain_backend, preset=opt.preset,
+                    device=device)
+
+
 def _needs_rechain(ctx: _FragCtx, opt: MapOptions, a: np.ndarray,
                    u: np.ndarray) -> bool:
     """Re-seed trigger: best chain misses segments (map.c:318-340)."""
@@ -147,6 +169,32 @@ def _dump_anchor(tag, mi, a, i, first):
     print("\t".join(map(str, tag + (
         mi.seq[rid].name, _i32(np.uint64(x)), "+-"[x >> 63],
         _i32(np.uint64(y)), (y >> 32) & 0xFF, diff))), file=_sys.stderr)
+
+
+def map_frag(mi: MMIndex, seqs: Sequence[str], opt: MapOptions,
+             qname: Optional[str] = None, device=None) -> FragResult:
+    """One fragment through seeding, per-task chaining (`chain_dp`, whose
+    device route runs on `device`) and everything after it; with
+    `--align-backend gpu` its large fills run on `device` one at a
+    time. `device` is the run's ("cuda" or "cpu")."""
+    prep = _prepare(mi, seqs, opt, qname)
+    if isinstance(prep, FragResult):
+        return prep
+    ctx = prep
+    if opt.dbg_print_seed:
+        import sys as _sys
+        print("RS\t%d" % ctx.sr.rep_len, file=_sys.stderr)
+        for i in range(len(ctx.sr.anchors)):
+            _dump_anchor(("SD",), mi, ctx.sr.anchors, i, i == 0)
+    a, u = _chain_ctx(ctx, opt, ctx.sr.anchors, device)
+    if _needs_rechain(ctx, opt, a, u):
+        if profiling.enabled:
+            profiling.count("chain.rechained")
+        ctx.sr = collect_seed_hits(mi, opt, opt.max_occ, ctx.mv, qname,
+                                   ctx.qlen_sum)
+        a, u = _chain_ctx(ctx, opt, ctx.sr.anchors, device)
+    with fill_scope(device):
+        return _post_chain(mi, ctx, opt, a, u)
 
 
 def _post_chain(mi: MMIndex, ctx: _FragCtx, opt: MapOptions,
@@ -558,7 +606,8 @@ def map_frags_batched(mi: MMIndex, frag_seqs: Sequence[Sequence[str]],
     come back: the launch and a non-blocking copy into pinned host
     memory go on the current stream, and a CUDA event tells the host
     when the copy is done. With `--profile` on, CUDA events also time
-    each bucket's chaining on the card (stage `chain.gpu_busy`), and
+    each bucket's chaining kernel on the card (stage `chain.gpu_busy`,
+    the launch's own span, `ops.card_spans`), and
     `chain.steps` counts the launches' serial DP steps (each launch's
     longest row: the chaining kernel stops every row at its n).
     Single-segment non-cDNA tasks chain on K1, every other task (read
@@ -641,22 +690,16 @@ def map_frags_batched(mi: MMIndex, frag_seqs: Sequence[Sequence[str]],
                                     max(len(t) for t in tasks))
                     profiling.count("chain.bytes_up", 16 * B * N + 8 * B)
                 planes = planes_to_torch(*pack_tasks16(tasks, N), dev)
-                busy = None
-                if on_cuda and profiling.enabled:
-                    busy = (torch.cuda.Event(enable_timing=True),
-                            torch.cuda.Event(enable_timing=True))
-                    busy[0].record()
-                f, prel = chain_scores_packed(
-                    *planes, max_dist_x=mdx, max_dist_y=mdy, bw=bw,
-                    iter_cap=iter_cap, gap_scale=gs, is_cdna=is_cdna,
-                    n_segs=n_segs, chain_fn=chain_fn)
-                if busy is not None:
-                    busy[1].record()
+                with card_spans(on_cuda and profiling.enabled) as spans:
+                    f, prel = chain_scores_packed(
+                        *planes, max_dist_x=mdx, max_dist_y=mdy, bw=bw,
+                        iter_cap=iter_cap, gap_scale=gs, is_cdna=is_cdna,
+                        n_segs=n_segs, chain_fn=chain_fn)
                 (f, prel), done = _to_host((f, prel))
-            return chunk, f, prel, done, busy
+            return chunk, f, prel, done, spans
 
         def consume(item):
-            chunk, f, pr, done, busy = item
+            chunk, f, pr, done, spans = item
             with profiling.stage("chain.device"):
                 if done is not None:
                     done.synchronize()
@@ -664,11 +707,9 @@ def map_frags_batched(mi: MMIndex, frag_seqs: Sequence[Sequence[str]],
                 pr = pr.numpy()
             if profiling.enabled:
                 profiling.count("chain.bytes_down", f.nbytes + pr.nbytes)
-            if busy is not None:
-                # card time from the first op after the upload to the
-                # last op before the copy back (host enqueue gaps included)
-                profiling.add("chain.gpu_busy",
-                              busy[0].elapsed_time(busy[1]) / 1e3)
+            if spans:
+                # the kernel launch's own span (`ops.card_spans`)
+                profiling.add("chain.gpu_busy", span_seconds(spans))
             with profiling.stage("chain.backtrack"):
                 for row, i in enumerate(chunk):
                     anchors = ctxs[i].sr.anchors

@@ -4,16 +4,18 @@ The shared library has a plain C interface (no PyTorch headers), so the
 build takes seconds. It goes to `build/mm2tpu_torch/` at the repository
 root, named by a hash of the sources and flags, and is built at first
 use: one nvcc process per source, all started together, then one link.
-A failed build raises with nvcc's stderr; nothing falls back.
+A failed build raises with nvcc's stderr; nothing falls back. The first
+build runs under a lock, so threads that reach `load()` together (the
+stream mode's mapping threads, its warm-up thread) build once.
 """
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -25,6 +27,9 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
 # what the last build printed (the ptxas register/shared-memory report);
 # None when the library came from the build directory
 build_log = None
+
+_LOCK = threading.Lock()
+_LIB = None
 
 
 def _nvcc() -> str:
@@ -39,9 +44,23 @@ def _nvcc() -> str:
                        "source at first use")
 
 
-@functools.cache
 def load() -> ctypes.CDLL:
-    """Build (if needed) and load the kernels' shared library."""
+    """Build (if needed) and load the kernels' shared library, once per
+    process."""
+    global _LIB
+    if _LIB is None:
+        with _LOCK:
+            if _LIB is None:
+                _LIB = _build_and_load()
+    return _LIB
+
+
+def loaded() -> bool:
+    """True once `load()` has returned, checked without starting it."""
+    return _LIB is not None
+
+
+def _build_and_load() -> ctypes.CDLL:
     global build_log
     srcs = sorted(CSRC.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())

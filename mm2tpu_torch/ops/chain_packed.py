@@ -12,15 +12,19 @@ The 8 B delta wire of the JAX package (`pack_tasks8`, `_decode8`) is not
 ported: it was built for a narrow TPU link and yields the same f/prel
 as this wire.
 
-`pack_tasks16`, `unpack_prel` and `v_carry_host` are NumPy code copied
-verbatim from the JAX package, whose modules import jax at the top.
+`chain_scores_task` chains one task at B = 1, the counterpart of
+`mm2tpu/ops/chain_pallas_v2.py::chain_scores_tpu_v2`, for the stream
+mode's device route. `pack_tasks16`, `unpack_prel` and `v_carry_host`
+are NumPy code copied verbatim from the JAX package, whose modules
+load JAX when they are imported.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from . import chain_v2, chain_v3
+from ..utils import profiling
+from . import card_spans, chain_v2, chain_v3, span_seconds
 from .chain_v3 import WINDOW
 
 
@@ -96,6 +100,53 @@ def planes_to_torch(*arrays_then_device):
     return tuple(out)
 
 
+def chain_scores_task(a: np.ndarray, max_dist_x: int, max_dist_y: int,
+                      bw: int, max_iter: int, gap_scale: float,
+                      is_cdna: bool, n_segs: int, *, device):
+    """One task's chaining on `device`: its (n, 2) uint64 anchors packed
+    at B = 1, N = max(1024, ceil(n / 1024) * 1024), scored by
+    `chain_scores` (on a CUDA tensor K1 for the single-segment non-cDNA
+    contract and K2 for every other; on a CPU tensor their plain
+    versions), then v by `v_carry_host`. Returns (f int32, p int64, v)
+    like the host DPs. The JAX package sends every contract to its v2
+    kernel; K1 computes the same contract
+    (`chain_ref.chain_scores_window`) for the tasks it takes. Under
+    --profile the task adds to `chain.launches`, `chain.anchors`,
+    `chain.padded_anchors`, `chain.steps` and, on CUDA, `chain.gpu_busy`
+    (the kernel launch's own span, `ops.card_spans`: events around the
+    whole task would also hold the work other mapping threads queue in
+    between)."""
+    n = len(a)
+    N = max(WINDOW, -(-n // WINDOW) * WINDOW)
+    dev = torch.device(device)
+    on = dev.type == "cuda" and profiling.enabled
+    with profiling.stage("chain.device"):
+        if profiling.enabled:
+            profiling.count("chain.launches")
+            profiling.count("chain.anchors", n)
+            profiling.count("chain.padded_anchors", N)
+            profiling.count("chain.steps", n)
+            profiling.count("chain.bytes_up", 16 * N + 8)
+        hi, lo, yhi, ylo, n_arr, avg = planes_to_torch(
+            *pack_tasks16([a], N), dev)
+        qi, span, sid = derive_qss(yhi, ylo)
+        with card_spans(on) as spans:
+            f, p = chain_scores(hi, lo, qi.contiguous(), span.contiguous(),
+                                sid.contiguous(), n_arr, avg,
+                                max_dist_x=max_dist_x, max_dist_y=max_dist_y,
+                                bw=bw, iter_cap=min(WINDOW, max_iter),
+                                gap_scale=float(gap_scale),
+                                is_cdna=bool(is_cdna), n_segs=int(n_segs))
+        f = f[:, :n].cpu().numpy()
+        p = p[:, :n].cpu().numpy().astype(np.int64)
+    if spans:
+        profiling.add("chain.gpu_busy", span_seconds(spans))
+    if profiling.enabled:
+        profiling.count("chain.bytes_down", 8 * n)
+    v = v_carry_host(f, p)
+    return f[0], p[0], v[0]
+
+
 # ---- copied verbatim from mm2tpu/ops/chain_packed.py ----
 
 def unpack_prel(prel_row: np.ndarray, n: int) -> np.ndarray:
@@ -151,5 +202,6 @@ def v_carry_host(f: np.ndarray, p: np.ndarray) -> np.ndarray:
 
 
 __all__ = ["chain_scores", "chain_scores_packed", "chain_scores_plain",
+           "chain_scores_task",
            "derive_qss", "p_rel", "planes_to_torch", "pack_tasks16",
            "unpack_prel", "v_carry_host", "WINDOW"]

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from . import count_lock, launching
 from .chain_v3 import NEG, WINDOW, _check_inputs, _ilog2
 
 launches = 0
@@ -48,7 +49,8 @@ def chain_scores_v2_reference(hi, lo, qi, span, sid, n, avg, *,
     int32, on the inputs' device."""
     global reference_calls
     _check_contract(is_cdna, n_segs)
-    reference_calls += 1
+    with count_lock:
+        reference_calls += 1
     B, N = hi.shape
     dev = hi.device
     cap = min(iter_cap, WINDOW)
@@ -129,15 +131,17 @@ def chain_scores_v2(hi, lo, qi, span, sid, n, avg, *, max_dist_x: int,
     exact_log = max(max_dist_x, max_dist_y, bw) + 1 >= (1 << 24)
     with torch.cuda.device(hi.device):
         stream = torch.cuda.current_stream(hi.device).cuda_stream
-        err = lib.mm2tpu_chain_v2(
-            hi.data_ptr(), lo.data_ptr(), qi.data_ptr(), span.data_ptr(),
-            sid.data_ptr(), n.data_ptr(), avg.data_ptr(), f.data_ptr(),
-            p.data_ptr(), B, N, max_dist_x, max_dist_y, bw,
-            min(iter_cap, WINDOW),
-            float(gap_scale), int(gap_scale != 1.0), int(exact_log),
-            int(bool(is_cdna)), n_segs, stream)
+        with launching():
+            err = lib.mm2tpu_chain_v2(
+                hi.data_ptr(), lo.data_ptr(), qi.data_ptr(), span.data_ptr(),
+                sid.data_ptr(), n.data_ptr(), avg.data_ptr(), f.data_ptr(),
+                p.data_ptr(), B, N, max_dist_x, max_dist_y, bw,
+                min(iter_cap, WINDOW),
+                float(gap_scale), int(gap_scale != 1.0), int(exact_log),
+                int(bool(is_cdna)), n_segs, stream)
     if err != 0:
         raise RuntimeError("chain_v2 kernel launch failed: cudaError %d"
                            % err)
-    launches += 1
+    with count_lock:
+        launches += 1
     return f, p

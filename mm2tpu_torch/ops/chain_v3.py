@@ -23,6 +23,8 @@ from __future__ import annotations
 
 import torch
 
+from . import count_lock, launching
+
 WINDOW = 1024        # lookback cap (chain_pallas.WINDOW)
 NEG = -0x20000000    # masked-key sentinel (chain_pallas_v2.NEG)
 
@@ -55,7 +57,8 @@ def chain_scores_v3_reference(hi, lo, qi, span, n, avg, *, max_dist_x: int,
     `pack_tasks16`'s pad for the two to agree. Returns (f, p), (B, N)
     int32, on the inputs' device."""
     global reference_calls
-    reference_calls += 1
+    with count_lock:
+        reference_calls += 1
     B, N = hi.shape
     dev = hi.device
     cap = min(iter_cap, WINDOW)
@@ -158,13 +161,15 @@ def chain_scores_v3(hi, lo, qi, span, n, avg, *, max_dist_x: int,
     p = torch.empty_like(hi)
     with torch.cuda.device(hi.device):
         stream = torch.cuda.current_stream(hi.device).cuda_stream
-        err = lib.mm2tpu_chain_v3(
-            hi.data_ptr(), lo.data_ptr(), qi.data_ptr(), span.data_ptr(),
-            n.data_ptr(), avg.data_ptr(), f.data_ptr(), p.data_ptr(), B, N,
-            max_dist_x, max_dist_y, bw, min(iter_cap, WINDOW),
-            float(gap_scale), int(gap_scale != 1.0), stream)
+        with launching():
+            err = lib.mm2tpu_chain_v3(
+                hi.data_ptr(), lo.data_ptr(), qi.data_ptr(), span.data_ptr(),
+                n.data_ptr(), avg.data_ptr(), f.data_ptr(), p.data_ptr(), B,
+                N, max_dist_x, max_dist_y, bw, min(iter_cap, WINDOW),
+                float(gap_scale), int(gap_scale != 1.0), stream)
     if err != 0:
         raise RuntimeError("chain_v3 kernel launch failed: cudaError %d"
                            % err)
-    launches += 1
+    with count_lock:
+        launches += 1
     return f, p

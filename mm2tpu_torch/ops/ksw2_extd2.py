@@ -24,9 +24,9 @@ states the Hopper design.
 
 `launches` counts kernel launches, `wide_fills` the fills they ran on
 state in device memory (too wide for the ring) and `reference_calls`
-runs of the plain version; `last_stamps` holds the last launch's (B, 3)
-int64 `%globaltimer` readings of each fill (start, after the last row,
-after the trace), on the card.
+runs of the plain version; `launch_stamps()` gives the calling thread's
+last launch's (B, 3) int64 `%globaltimer` readings of each fill (start,
+after the last row, after the trace), on the card.
 
 Left out on purpose: the XLA shape ladder (`quantize_shapes`,
 `_ROW_LADDER`), `rows_per_program` and the padding of a batch to a power
@@ -38,10 +38,13 @@ of the TPU kernel.
 """
 from __future__ import annotations
 
+import threading
 from typing import List, Sequence
 
 import numpy as np
 import torch
+
+from . import card_spans, count_lock, launching, span_seconds
 
 from ..utils import profiling
 from .ksw2_ref import (KSW_EZ_APPROX_DROP, KSW_EZ_APPROX_MAX,
@@ -60,7 +63,19 @@ NREG = 16   # width of the ez register rows (the 14 columns above, 2 unused)
 launches = 0
 wide_fills = 0
 reference_calls = 0
-last_stamps = None
+_stamps = threading.local()
+
+
+def record_stamps(stamps) -> None:
+    """Keep a launch's (B, 3) stamps (or None) as the calling thread's
+    last, which the batch wrappers read under --profile."""
+    _stamps.last = stamps
+
+
+def launch_stamps():
+    """The (B, 3) stamps of the calling thread's last K3 or K4 launch, on
+    the card (None before the first)."""
+    return getattr(_stamps, "last", None)
 
 # csrc/ksw2_extd2.cu: the widest ring (columns), the int32 values a ring
 # column holds (u, v, x, y, x2, y2, H in two generations, s), the
@@ -284,7 +299,8 @@ def extd2_traced_reference(lens, tsf, qcol, *, q: int, e: int, q2: int,
     row: a fill's registers stop at its Z-drop or band break, and the
     DP cells it goes on computing after that are never read."""
     global reference_calls
-    reference_calls += 1
+    with count_lock:
+        reference_calls += 1
     dev = lens.device
     i32, i64 = torch.int32, torch.int64
     B, T = tsf.shape
@@ -676,7 +692,7 @@ def extd2_traced(lens, tsf, qcol, *, q: int, e: int, q2: int, e2: int,
     host (`Packed.lens`); without it the wrapper reads lens back, which
     waits for the stream. Returns (ez (B, 16) int32, ops (B, Smax) uint8,
     i_fin (B,) int32, j_fin (B,) int32)."""
-    global launches, wide_fills, last_stamps
+    global launches, wide_fills
     kw = dict(q=q, e=e, q2=q2, e2=e2, zdrop=zdrop, sc_mch=sc_mch,
               sc_mis=sc_mis, sc_N=sc_N, w=w, right=right, approx=approx,
               approx_drop=approx_drop, extz_only=extz_only,
@@ -716,19 +732,21 @@ def extd2_traced(lens, tsf, qcol, *, q: int, e: int, q2: int, e2: int,
              | int(extz_only) << 3)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mm2tpu_ksw2_extd2(
-            lens.data_ptr(), tsf.data_ptr(), qcol.data_ptr(),
-            meta.data_ptr(), None if state is None else state.data_ptr(),
-            plane.data_ptr(), ez.data_ptr(), ops.data_ptr(), ij.data_ptr(),
-            stamps.data_ptr(), B, Tpad, qcol.shape[1], stride, Smax, W,
-            smem, q_, e_, q2_, e2_, long_thres, long_diff, zdrop, sc_mch,
-            sc_mis, sc_N, w, end_bonus, flags, stream)
+        with launching():
+            err = lib.mm2tpu_ksw2_extd2(
+                lens.data_ptr(), tsf.data_ptr(), qcol.data_ptr(),
+                meta.data_ptr(), None if state is None else state.data_ptr(),
+                plane.data_ptr(), ez.data_ptr(), ops.data_ptr(), ij.data_ptr(),
+                stamps.data_ptr(), B, Tpad, qcol.shape[1], stride, Smax, W,
+                smem, q_, e_, q2_, e2_, long_thres, long_diff, zdrop, sc_mch,
+                sc_mis, sc_N, w, end_bonus, flags, stream)
     if err != 0:
         raise RuntimeError("ksw2_extd2 kernel launch failed: cudaError %d"
                            % err)
-    launches += 1
-    wide_fills += n_wide
-    last_stamps = stamps
+    with count_lock:
+        launches += 1
+        wide_fills += n_wide
+    record_stamps(stamps)
     return ez, ops, ij[:, 0], ij[:, 1]
 
 
@@ -736,7 +754,7 @@ def run_packed(pk: Packed, device, call, cells: float):
     """Upload the packed planes of one flush to `device`, run
     `call(*planes)` -> (ez, ops, i_fin, j_fin) there and bring the four
     back as numpy arrays. Under --profile, count the flush (`ext.*`) and
-    time its card work (`ext.gpu_busy`)."""
+    add its kernel's card time to `ext.gpu_busy` (`ops.card_spans`)."""
     dev = torch.device(device)
     on_cuda = dev.type == "cuda"
     arrays = pk.planes()
@@ -745,14 +763,8 @@ def run_packed(pk: Packed, device, call, cells: float):
                   for a in arrays]
     else:
         planes = [torch.from_numpy(a).to(dev) for a in arrays]
-    busy = None
-    if on_cuda and profiling.enabled:
-        busy = (torch.cuda.Event(enable_timing=True),
-                torch.cuda.Event(enable_timing=True))
-        busy[0].record()
-    out = call(*planes)
-    if busy is not None:
-        busy[1].record()
+    with card_spans(on_cuda and profiling.enabled) as spans:
+        out = call(*planes)
     out = [t.cpu().numpy() for t in out]
 
     if profiling.enabled:  # align-stage transport evidence
@@ -761,10 +773,9 @@ def run_packed(pk: Packed, device, call, cells: float):
         profiling.count("ext.bytes_up", sum(a.nbytes for a in arrays))
         profiling.count("ext.bytes_down", sum(a.nbytes for a in out))
         profiling.count("ext.cells", float(cells))
-        if busy is not None:
-            # card time from the first op after the upload to the last op
-            # of the kernel (the readback above synchronised the stream)
-            profiling.add("ext.gpu_busy", busy[0].elapsed_time(busy[1]) / 1e3)
+        if spans:
+            # the kernel launch's own span (`ops.card_spans`)
+            profiling.add("ext.gpu_busy", span_seconds(spans))
     return out
 
 
@@ -797,7 +808,7 @@ def extd2_batch(tasks: Sequence[tuple], mat, q: int, e: int, q2: int,
         return results
     cells = sum((min(2 * w + 1, len(tasks[i][0])) if w >= 0
                  else len(tasks[i][0])) * len(tasks[i][1]) for i in run_idx)
-    launched = launches
+    record_stamps(None)
     ez, ops, i_f, j_f = run_packed(pk, device, lambda *planes: fn(
         *planes, q=q, e=e, q2=q2, e2=e2, zdrop=zdrop, sc_mch=pk.sc_mch,
         sc_mis=pk.sc_mis, sc_N=pk.sc_N, w=w, right=bool(flag & KSW_EZ_RIGHT),
@@ -810,11 +821,11 @@ def extd2_batch(tasks: Sequence[tuple], mat, q: int, e: int, q2: int,
         # the kernel runs on state in device memory
         profiling.count("ext.d2_rows", int(pk.lens.sum(1).max()) - 1)
         profiling.count("ext.d2_wide", int(ring_plan(pk.lens, w)[2].sum()))
-        if launches != launched:
+        st = launch_stamps()
+        if st is not None:
             # the kernel's own time, from its first fill's start to its
-            # last fill's end: ext.gpu_busy also holds the host's work
-            # between the upload and the launch
-            st = last_stamps.cpu().numpy()
+            # last fill's end (ext.gpu_busy is the launch's, from events)
+            st = st.cpu().numpy()
             profiling.add("ext.d2_kernel",
                           float(st[:, 2].max() - st[:, 0].min()) / 1e9)
 

@@ -24,9 +24,9 @@ exactly as `_backtrack_abs(..., min_intron_len=long_thres)` does.
 
 `launches` counts kernel launches, `wide_fills` the fills they ran on
 state in device memory (too wide for the ring) and `reference_calls`
-runs of the plain version; `last_stamps` holds the last launch's (B, 3)
-int64 `%globaltimer` readings of each fill (start, after the last row,
-after the trace), on the card. What the splice DP shares with extd2 (the
+runs of the plain version; `launch_stamps()` gives the calling thread's
+last launch's (B, 3) int64 `%globaltimer` readings of each fill (start,
+after the last row, after the trace), on the card. What the splice DP shares with extd2 (the
 band geometry with w = -1, the registers from per-row records, the trace
 and its host tail, the packing class and the transfer) comes from
 `ksw2_extd2`.
@@ -38,10 +38,13 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
+from . import count_lock, launching
+
 from .ksw2_extd2 import (BIG, NREG, _NEXT, Packed, _cigar_from_ops,
                          _geometry, _next_state_table, _registers, _sf_image,
-                         _trace_reference, band_cap, run_packed,
-                         set_ez_fields, R_MAXQ, R_MAXT, R_ZDROP)
+                         _trace_reference, band_cap, launch_stamps,
+                         record_stamps, run_packed, set_ez_fields, R_MAXQ,
+                         R_MAXT, R_ZDROP)
 from .ksw2_extd2 import _check_inputs as _check_planes
 from ..utils import profiling
 from .ksw2_ref import (KSW_EZ_APPROX_DROP, KSW_EZ_APPROX_MAX,
@@ -52,7 +55,6 @@ from .ksw2_ref import (KSW_EZ_APPROX_DROP, KSW_EZ_APPROX_MAX,
 launches = 0
 wide_fills = 0
 reference_calls = 0
-last_stamps = None
 
 # csrc/ksw2_exts2.cu: the widest ring (columns), the int32 values a ring
 # column holds (u, v, x, y, x2, H in two generations, s), the trace's
@@ -235,7 +237,8 @@ def exts2_traced_reference(lens, tsf, qcol, don, acc, *, q: int, e: int,
     walk, and the ez registers come from those records after the last
     row (`ksw2_extd2._registers` with slope 0)."""
     global reference_calls
-    reference_calls += 1
+    with count_lock:
+        reference_calls += 1
     dev = lens.device
     i32, i64 = torch.int32, torch.int64
     B, T = tsf.shape
@@ -452,7 +455,7 @@ def exts2_traced(lens, tsf, qcol, don, acc, *, q: int, e: int, q2: int,
     the host (`Packed.lens`); without it the wrapper reads lens back,
     which waits for the stream. Returns (ez (B, 16) int32, ops (B, Smax)
     uint8, i_fin (B,) int32, j_fin (B,) int32)."""
-    global launches, wide_fills, last_stamps
+    global launches, wide_fills
     kw = dict(q=q, e=e, q2=q2, zdrop=zdrop, sc_mch=sc_mch, sc_mis=sc_mis,
               sc_N=sc_N, right=right, approx=approx, approx_drop=approx_drop,
               extz_only=extz_only)
@@ -492,20 +495,23 @@ def exts2_traced(lens, tsf, qcol, don, acc, *, q: int, e: int, q2: int,
              | int(extz_only) << 3)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mm2tpu_ksw2_exts2(
-            lens.data_ptr(), tsf.data_ptr(), qcol.data_ptr(), don.data_ptr(),
-            acc.data_ptr(), meta.data_ptr(),
-            None if state is None else state.data_ptr(), plane.data_ptr(),
-            ez.data_ptr(), ops.data_ptr(), ij.data_ptr(), stamps.data_ptr(),
-            B, Tpad, qcol.shape[1], stride, Smax, W, smem, q, e, q2,
-            long_thres, long_diff, zdrop, sc_mch, sc_mis, sc_N, flags,
-            stream)
+        with launching():
+            err = lib.mm2tpu_ksw2_exts2(
+                lens.data_ptr(), tsf.data_ptr(), qcol.data_ptr(),
+                don.data_ptr(), acc.data_ptr(), meta.data_ptr(),
+                None if state is None else state.data_ptr(),
+                plane.data_ptr(), ez.data_ptr(), ops.data_ptr(),
+                ij.data_ptr(), stamps.data_ptr(),
+                B, Tpad, qcol.shape[1], stride, Smax, W, smem, q, e, q2,
+                long_thres, long_diff, zdrop, sc_mch, sc_mis, sc_N, flags,
+                stream)
     if err != 0:
         raise RuntimeError("ksw2_exts2 kernel launch failed: cudaError %d"
                            % err)
-    launches += 1
-    wide_fills += n_wide
-    last_stamps = stamps
+    with count_lock:
+        launches += 1
+        wide_fills += n_wide
+    record_stamps(stamps)
     return ez, ops, ij[:, 0], ij[:, 1]
 
 
@@ -525,7 +531,7 @@ def exts2_batch(tasks: Sequence[tuple], mat, q: int, e: int, q2: int,
     if not run_idx:
         return results
     cells = sum(len(tasks[i][0]) * len(tasks[i][1]) for i in run_idx)
-    launched = launches
+    record_stamps(None)
     ez, ops, i_f, j_f = run_packed(pk, device, lambda *planes: fn(
         *planes, q=q, e=e, q2=q2, zdrop=zdrop, sc_mch=pk.sc_mch,
         sc_mis=pk.sc_mis, sc_N=pk.sc_N, right=bool(flag & KSW_EZ_RIGHT),
@@ -537,11 +543,11 @@ def exts2_batch(tasks: Sequence[tuple], mat, q: int, e: int, q2: int,
         # the kernel runs on state in device memory
         profiling.count("ext.s2_rows", int(pk.lens.sum(1).max()) - 1)
         profiling.count("ext.s2_wide", int(ring_plan(pk.lens)[2].sum()))
-        if launches != launched:
+        st = launch_stamps()
+        if st is not None:
             # the kernel's own time, from its first fill's start to its
-            # last fill's end: ext.gpu_busy also holds the host's work
-            # between the upload and the launch
-            st = last_stamps.cpu().numpy()
+            # last fill's end (ext.gpu_busy is the launch's, from events)
+            st = st.cpu().numpy()
             profiling.add("ext.s2_kernel",
                           float(st[:, 2].max() - st[:, 0].min()) / 1e9)
 

@@ -44,7 +44,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from . import chain_v3
+from . import chain_v3, count_lock
 from .chain_packed import p_rel
 
 INT64_MIN = -(1 << 63)
@@ -103,7 +103,8 @@ def probe_counts_reference(keys, start, cnt, q):
     int64 `keys` by a branchless binary search, one gather a step (as
     `lookup_index_device`). Returns (start, cnt), int32 of q's shape, 0
     on a miss or a pad."""
-    reference_calls["probe"] += 1
+    with count_lock:
+        reference_calls["probe"] += 1
     n = keys.shape[0]
     zeros = torch.zeros(q.shape, dtype=torch.int32, device=q.device)
     if n == 0:
@@ -162,7 +163,8 @@ def probe_counts(keys, start, cnt, q):
     if err != 0:
         raise RuntimeError("seed_probe kernel launch failed: cudaError %d"
                            % err)
-    launches["probe"] += 1
+    with count_lock:
+        launches["probe"] += 1
     return s, c
 
 
@@ -180,7 +182,8 @@ def build_anchors_reference(start, cnt, qpos, qyhi, qlen, pos, *, N: int,
     hit's and the minimizer's strands differ), `PAD_KEY` past the total;
     y = qyhi<<32 | y_pos (y_pos reversed on a strand mismatch), 0 past
     it. Slots past N are not built."""
-    reference_calls["build"] += 1
+    with count_lock:
+        reference_calls["build"] += 1
     B, M = cnt.shape
     dev = cnt.device
     c = torch.where(cnt < mid_occ, cnt, 0).to(torch.int64)
@@ -251,7 +254,8 @@ def build_anchors(start, cnt, qpos, qyhi, qlen, pos, *, N: int,
     if err != 0:
         raise RuntimeError("seed_build kernel launch failed: cudaError %d"
                            % err)
-    launches["build"] += 1
+    with count_lock:
+        launches["build"] += 1
     return key, y, n
 
 

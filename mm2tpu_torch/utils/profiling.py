@@ -66,18 +66,17 @@ def stage(name: str):
     try:
         yield
     finally:
-        dt = time.perf_counter() - t0
-        s = _acc.setdefault(name, [0.0, 0])
-        s[0] += dt
-        s[1] += 1
+        add(name, time.perf_counter() - t0)
 
 
 def add(name: str, seconds: float, calls: int = 1) -> None:
-    """Record externally-measured time (e.g. device time from a bench)."""
+    """Record externally-measured time (e.g. device time from a bench).
+    Locked, as `count` is."""
     if enabled:
-        s = _acc.setdefault(name, [0.0, 0])
-        s[0] += seconds
-        s[1] += calls
+        with _cnt_lock:
+            s = _acc.setdefault(name, [0.0, 0])
+            s[0] += seconds
+            s[1] += calls
 
 
 def snapshot() -> Dict[str, Tuple[float, int]]:

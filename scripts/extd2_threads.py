@@ -84,7 +84,7 @@ def main(argv=None) -> int:
                         _build.load = lambda lib=lib: lib
                         ms, out = cs.cuda_ms(functools.partial(
                             X.extd2_traced, *planes, **kw), 3)
-                        stamps = X.last_stamps.cpu().numpy()
+                        stamps = X.launch_stamps().cpu().numpy()
                         if ref is None:
                             ref = [t.clone() for t in out]
                         elif not all(torch.equal(a, b)

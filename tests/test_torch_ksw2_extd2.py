@@ -246,7 +246,7 @@ def test_extd2_batch_counts_d2_rows_and_passes_host_lens():
         B, smax = len(lens_h), int(lens_h.sum(1).max()) - 1
         X.launches += 1
         b = torch.arange(B, dtype=torch.int64)
-        X.last_stamps = torch.stack([b, b + 5, 10 + 2 * b], 1)
+        X.record_stamps(torch.stack([b, b + 5, 10 + 2 * b], 1))
         return (torch.zeros((B, X.NREG), dtype=torch.int32),
                 torch.full((B, smax), 255, dtype=torch.uint8),
                 torch.full((B,), -1, dtype=torch.int32),

@@ -454,7 +454,7 @@ def test_exts2_batch_counts_s2_rows_and_passes_host_lens():
         B, smax = len(lens_h), int(lens_h.sum(1).max()) - 1
         S.launches += 1
         b = torch.arange(B, dtype=torch.int64)
-        S.last_stamps = torch.stack([b, b + 5, 10 + 2 * b], 1)
+        S.record_stamps(torch.stack([b, b + 5, 10 + 2 * b], 1))
         return (torch.zeros((B, X.NREG), dtype=torch.int32),
                 torch.full((B, smax), 255, dtype=torch.uint8),
                 torch.full((B,), -1, dtype=torch.int32),

@@ -145,6 +145,38 @@ assert not bad, bad
     assert len(cigars) == len(body) and any("N" in x for x in cigars)
 
 
+def test_stream_mode_and_split_prefix_run_without_jax(workload, tmp_path):
+    """--map-mode stream (the default route, and every task on the device
+    route through the plain K1) and --split-prefix, in a process that
+    refuses jax and mm2tpu."""
+    ref, reads = workload
+    out = {k: tmp_path / k for k in ("auto.paf", "gpu.paf", "split.paf")}
+    r = run_python(f"""
+from mm2tpu_torch.cli import main
+from mm2tpu_torch.ops import chain_v3
+rc = main(["-x", "map-ont", "--map-mode", "stream", "-t", "2", "--device",
+           "cpu", "-o", {str(out["auto.paf"])!r}, {ref!r}, {reads!r}])
+assert rc == 0, rc
+calls = chain_v3.reference_calls
+rc = main(["-x", "map-ont", "--map-mode", "stream", "--chain-backend", "gpu",
+           "-t", "4", "--device", "cpu", "-o", {str(out["gpu.paf"])!r},
+           {ref!r}, {reads!r}])
+assert rc == 0, rc
+assert chain_v3.reference_calls - calls >= 12, chain_v3.reference_calls
+rc = main(["-x", "map-ont", "--split-prefix", {str(tmp_path / "sp")!r},
+           "--device", "cpu", "-o", {str(out["split.paf"])!r}, {ref!r},
+           {reads!r}])
+assert rc == 0, rc
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "mm2tpu")]
+assert not bad, bad
+""")
+    assert r.returncode == 0, r.stderr[-3000:]
+    for k in out:
+        assert len(out[k].read_text().splitlines()) >= 12, k
+    assert out["gpu.paf"].read_text() == out["auto.paf"].read_text()
+    assert not list(tmp_path.glob("sp.*.tmp"))
+
+
 def test_blocker_really_blocks_jax():
     r = run_python("import jax\n", timeout=120)
     assert r.returncode != 0 and "jax is blocked" in r.stderr
@@ -212,11 +244,16 @@ def test_resolve_device_is_explicit():
     pytest.param(["--seed-backend", "tpu"], "--seed-backend gpu", 1,
                  id="flags2-M7-1"),
     (["--align-backend", "tpu"], "--align-backend gpu", 1),
-    (["--chain-backend", "native"], "M3", 1),
-    (["--split-prefix", "x"], "M1", 1),
-    (["--map-mode", "stream"], "M3", 1),
+    # the JAX package's chaining route, refused naming the port's, and the
+    # JAX package's batch-only device seeding asked for in stream mode
+    pytest.param(["--chain-backend", "tpu"], "--chain-backend gpu", 1,
+                 id="chain-backend-tpu"),
+    pytest.param(["--map-mode", "stream", "--seed-backend", "gpu"],
+                 "--map-mode batch only", 1, id="stream-seed-backend-gpu"),
     (["--profile-trace", "tr"], "M10", 1),
-    (["-x", "sr", "--map-mode", "stream"], "M3", 2),
+    pytest.param(["-x", "sr", "--map-mode", "stream", "--chain-backend",
+                  "tpu"], "--chain-backend gpu", 2,
+                 id="sr-stream-chain-backend-tpu"),
 ])
 def test_cli_rejects_unported_modes(workload, tmp_path, capsys, flags, item,
                                     n_queries):
