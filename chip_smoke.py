@@ -2,8 +2,9 @@
 """Drive the PyTorch port's paths once on one CUDA card: -x map-ont
 (PAF, host-seeded and device-seeded, and SAM), -x sr read pairs and -x
 splice spliced reads (PAF, and SAM and PAF with CIGARs through the splice
-kernel) in batch mode, and -x map-ont in stream mode (each chaining task
-placed on the host or the card on its own), with --split-prefix.
+kernel) in batch mode, -x map-ont in stream mode (each chaining task
+placed on the host or the card on its own), with --split-prefix, and
+-x map-ont over a data-parallel mesh (--mesh) on the 8 B delta wire.
 
 Run from the root of a checkout, with no arguments, for the gate (every
 phase but the deep parity runs, 7 and 10):
@@ -19,10 +20,10 @@ the extd2 kernel, `--phases 1,3,5,6` to add the map-ont SAM path,
 `--phases 1,3b,9` for the splice kernel and the spliced-read path,
 `--phases 1,2,4` for the chaining kernel's K1 and K2, `--phases 1,5,5s`
 for the seeding kernels K5 and K6 and the device-seeded path, `--phases
-1,5,5r` for the stream mode) to run
+1,5,5r` for the stream mode, `--phases 1,5,5m` for the mesh) to run
 phase 0, the named phases and phase 11's import check only; the kernel
 JSON line then lists only the kernels whose phase ran (launches null
-where their path's phase did not run). Phases 5s, 5r and 6 need 5, 7 needs
+where their path's phase did not run). Phases 5s, 5r, 5m and 6 need 5, 7 needs
 5 and 6, and 10 needs 8 and 9: a list that names one without the other
 is refused. Phases 8 and 9 generate the genome of phase 5 themselves.
 
@@ -39,7 +40,12 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      largest shape), and on a batch shaped like the pipeline's launches
      (B = 128: 100 rows of ragged n, 28 empty rows) under all four; f
      and p equal, with both timed (and the kernel's us a step: its ms
-     over the batch's largest n)
+     over the batch's largest n); then rows whose span sum passes
+     KEY_SCORE_MAX (2^21 - 2), which the kernel keys in int64, beside
+     rows keyed in int32 in one launch: f and p equal to the plain
+     version's and to chain_ref.chain_scores_window's, each key width
+     timed alone, and a task of 143360 anchors of span 15 timed and held
+     against chain_scores_window
   3. the extd2 kernel K3 (extension DP, backtrack start and trace)
      against its plain version on the card: seeded fills of 300-1000 and
      2000-5000 bases (10% substitutions, 5% indels), B = 8 and 64,
@@ -69,7 +75,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      (128, 1024) and (64, 16384), under -x sr's and -x splice's chaining
      settings, gap_scale 0.8 and iter_cap 500, and a pipeline-shaped
      batch as in phase 2 for each contract; f and p equal, both timed at
-     the largest shape (with the kernel's us a step)
+     the largest shape (with the kernel's us a step); and phase 2's rows
+     over the score bound under each contract (the second row in two
+     segments where n_segs = 2)
   5. the map-ont PAF path: `mm2tpu_torch.cli.main -x map-ont --device
      cuda` on a seeded 48 Mb genome with 1000 ONT-like reads; >= 95% of
      the reads must map, and only K1 may have chained (its launches,
@@ -106,6 +114,23 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      the SAMs byte-identical to `--align-backend host`'s; (vi)
      `--split-prefix` with -I so that the index comes in two parts: two,
      >= 95% of the reads mapped, no .tmp file left
+ 5m. the data-parallel mesh (K7) and the 8 B delta wire (K1a) on phase
+     5's genome and reads: (i) `--mesh 1`: its PAF byte-identical to
+     phase 5's, with mesh.wire8 and chain.bytes_up; (ii) the batch
+     pipeline over two shards of cuda:0 (`main(..., mesh=)`): its PAF
+     byte-identical to phase 5's, every bucket a K7 launch a shard and a
+     K1a launch a shard on the 8 B wire, only K1 launched; (iii) the
+     sharded probe at 2 and 4 shards of cuda:0 over the full index, every
+     read's minimizers as queries: (start, cnt) equal to the replicated
+     K5's, both timed; (iv) at the largest map-ont bucket decode8 of
+     pack_tasks8 on the card equal to the 16 B planes, and upload +
+     decode + K1 timed against upload + K1 on the 16 B wire (median of
+     5), f and prel equal, as the two-shard mesh step's; K1a and the
+     mesh step held against their plain version (decode8, the plain K1)
+     on the bucket of most padded anchors with N <= MESH_PLAIN_MAX_N;
+     (v) `torch.cuda.device_count()`, and where it is above 1 `--mesh
+     <count>` as (i), the sharded probe as (iii) and the dry run over the
+     cards; then `dryrun_multichip` on two shards of cuda:0
   6. the map-ont SAM path: the same reads with `-a --align-backend gpu
      --align-tpu-min-mat 1`, every extension fill on K3 (the flushes'
      serial rows ext.d2_rows, the wide fills ext.d2_wide, K3's card time
@@ -178,6 +203,16 @@ EXT_PARITY_READS = 20     # of the parity reads, through the plain extd2
 # kernel line of the JSON reports; it runs the map-ont setting only (its
 # plain version takes ~30 s a call), the others every setting.
 SHAPES = [(8, 1024), (32, 8192), (64, 16384), (128, 65536)]
+# rows whose span sum passes chain_v3.KEY_SCORE_MAX (2^21 - 2), which
+# K1/K2 key in int64: collinear tasks of span 255, 300 bp apart, whose
+# scores pass the bound at anchor 8224. One launch at N = WIDE_N holds the
+# task of WIDE_OVER anchors, a second task (the same in two segments for
+# K2, else one of span 15 under the bound), the task of its first
+# WIDE_UNDER anchors (span sum 2,097,120: the int32 key) and an empty row
+WIDE_OVER, WIDE_UNDER, WIDE_N = 9000, 8224, 9216
+# a map-ont-sized task over the bound: WIDE_LONG[0] anchors of span 15
+# (k = 15) at N = WIDE_LONG[1], on K1 against the oracle (~15 s of NumPy)
+WIDE_LONG = (143360, 147456)
 # the batch shaped like the pipeline's launches (B_SIZES' largest, the
 # chunk's tasks then empty rows): (B, real rows, N) for K1 and for K2
 PIPELINE_BATCH = {"chain_v3": (128, 100, 8192), "chain_v2": (128, 100, 1024)}
@@ -444,6 +479,82 @@ def chain_work(n, N, cap, planes, ops_per_candidate):
             cands * ops_per_candidate)
 
 
+def collinear_task(n, span, gap=300):
+    """(n, 2) uint64 anchors on one diagonal, `gap` apart, of span `span`:
+    f grows by `span` a step."""
+    pos = gap * np.arange(n, dtype=np.uint64)
+    return np.stack([pos, (np.uint64(span) << np.uint64(32)) | pos], axis=1)
+
+
+def wide_key_check(phase, cfg, is_cdna=False, n_segs=1, long=False):
+    """K1 (or K2 under (is_cdna, n_segs)) on rows whose span sum passes
+    KEY_SCORE_MAX, which the kernel keys in int64, in one launch with
+    rows keyed in int32 (WIDE_*): f and p equal to the plain version's on
+    every row and to chain_ref.chain_scores_window's, the contract's
+    oracle; the row over the bound must pass it. Each collinear row is
+    timed alone at B = 1. With `long`, the map-ont-sized task of
+    WIDE_LONG on K1, timed and held against the oracle. Returns (max abs
+    err, {what: (ms, steps)})."""
+    from mm2tpu_torch.ops import chain_ref
+    from mm2tpu_torch.ops.chain_packed import (KEY_SCORE_MAX, chain_scores,
+                                               derive_qss, pack_tasks16,
+                                               planes_to_torch)
+    over = collinear_task(WIDE_OVER, 255)
+    tasks = [over, two_segment(over, 77) if n_segs > 1 else
+             synth_anchors(WIDE_OVER, seed=77, n_rids=3, rev_frac=0.4),
+             over[:WIDE_UNDER], np.zeros((0, 2), np.uint64)]
+    kw = dict(cfg, is_cdna=is_cdna, n_segs=n_segs)
+    what = "K1" if n_segs == 1 and not is_cdna else \
+        "K2 (is_cdna=%s, n_segs=%d)" % (is_cdna, n_segs)
+
+    def planes_of(rows, N):
+        hi, lo, yhi, ylo, n, avg = planes_to_torch(*pack_tasks16(rows, N),
+                                                   DEVICE)
+        qi, span, sid = derive_qss(yhi, ylo)
+        return (hi, lo, qi.contiguous(), span.contiguous(), sid.contiguous(),
+                n, avg)
+
+    def oracle(a, f, p, tag):
+        fw, pw, _ = chain_ref.chain_scores_window(
+            a, cfg["max_dist_x"], cfg["max_dist_y"], cfg["bw"],
+            min(cfg["iter_cap"], 1024), cfg["gap_scale"], is_cdna, n_segs)
+        if not (np.array_equal(f[:len(a)].cpu().numpy(), fw) and
+                np.array_equal(p[:len(a)].cpu().numpy(), pw)):
+            raise AssertionError("%s %s: %s differs from "
+                                 "chain_scores_window" % (phase, what, tag))
+
+    planes = planes_of(tasks, WIDE_N)
+    f, p = chain_scores(*planes, **kw)
+    f2, p2 = chain_scores(*planes, plain=True, **kw)
+    err = chain_err("%s %s != plain on rows over the score bound"
+                    % (phase, what), f, p, f2, p2)
+    for r in range(3):
+        oracle(tasks[r], f[r], p[r], "row %d" % r)
+    if int(f[0].max()) <= KEY_SCORE_MAX:
+        raise AssertionError("%s %s: the row over the bound reached f %d"
+                             % (phase, what, int(f[0].max())))
+    times = {}
+    for tag, r in (("int64 key", 0), ("int32 key", 2)):
+        one = planes_of([tasks[r]], WIDE_N)
+        times[tag] = (cuda_ms(lambda: chain_scores(*one, **kw), 5)[0],
+                      len(tasks[r]))
+    if long:
+        a = collinear_task(WIDE_LONG[0], 15)
+        one = planes_of([a], WIDE_LONG[1])
+        ms, (fl, pl) = cuda_ms(lambda: chain_scores(*one, **kw), 3)
+        oracle(a, fl[0], pl[0], "the task of %d anchors of span 15"
+               % len(a))
+        times["int64 key, %d anchors of span 15" % len(a)] = (ms, len(a))
+    say(phase, "%s == plain on rows over the score bound (f up to %d > "
+        "KEY_SCORE_MAX %d, int64 key) beside int32-keyed rows at (B, N) = "
+        "(4, %d), and == chain_scores_window on every real row; alone at "
+        "B = 1: %s" % (what, int(f[0].max()), KEY_SCORE_MAX, WIDE_N,
+                       "; ".join("%s %.3f ms, %.3f us a step over %d steps"
+                                 % (k, ms, ms * 1e3 / n, n)
+                                 for k, (ms, n) in times.items())))
+    return err, times
+
+
 def phase_build():
     """The port's native runtime (forced: a stale library corrupts chains
     silently) and the CUDA kernels, built side by side."""
@@ -521,6 +632,8 @@ def phase_kernel_vs_plain():
         "%d rows of n %d-%d and %d empty rows, under %s" % (
             B, N, n_real, int(n[:n_real].min()), int(n.max()), B - n_real,
             ", ".join(CONFIGS)))
+    max_err = max(max_err, wide_key_check(2, CONFIGS["map-ont"],
+                                          long=True)[0])
     return times, max_err, work
 
 
@@ -620,6 +733,9 @@ def phase_v2_kernel_vs_plain():
                           int(planes[5][:n_real].min()),
                           int(planes[5].max()), B - n_real,
                           ", ".join(V2_CONFIGS)))
+    for is_cdna, n_segs in V2_CONTRACTS:
+        max_err = max(max_err, wide_key_check(
+            4, V2_CONFIGS[V2_TIMED[(is_cdna, n_segs)]], is_cdna, n_segs)[0])
     return times, max_err, work
 
 
@@ -1578,6 +1694,263 @@ def phase_split_prefix(tmp, ref, reads):
 
 
 
+# ---- phase 5m: the data-parallel mesh (K7) and the 8 B delta wire (K1a) ----
+
+# two shards of the batch pipeline, and of the dry run, on one card
+MESH_ONE_CARD = ("cuda:0", "cuda:0")
+# the sharded probe's meshes: D shards, all on cuda:0
+MESH_PROBE_SHARDS = (2, 4)
+# K1a and K7 are held against their plain version (decode8, then the
+# plain K1) on the map-ont bucket of the most padded anchors among those
+# of N <= MESH_PLAIN_MAX_N: the plain K1 takes ~0.5 ms a step on the card
+MESH_PLAIN_MAX_N = 8192
+
+
+def median_ms(fn, reps=5, warmup=True):
+    """Median CUDA-event time of `reps` calls of `fn`, each timed alone
+    (events before and after, then a synchronise), in ms, and the last
+    call's result."""
+    if warmup:
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = fn()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return float(np.median(times)), out
+
+
+def mesh_run(tmp, tag, what, ref, reads, lines, ph5_counters, argv=(),
+             **main_kw):
+    """One map-ont PAF run through the mesh path, with K1a's and K7's
+    counts set to 0 just before it and read just after: its PAF must
+    equal phase 5's, only K1 may have launched, and every bucket must
+    have gone through the mesh (a K7 launch a shard, a K1a launch a shard
+    of each bucket on the 8 B wire). Returns (K1a launches, K7
+    launches)."""
+    from mm2tpu_torch.ops import chain_packed as cp
+    from mm2tpu_torch.parallel import mesh as pm
+    paf = os.path.join(tmp, "mesh_%s.paf" % tag)
+    cp.launches8 = pm.launches = 0
+    wall, counts, stages, counters = drive(
+        ["-x", "map-ont", "--device", DEVICE, *argv, "-o", paf, ref, reads],
+        **main_kw)
+    k1a, k7 = cp.launches8, pm.launches
+    only("5m", what, counts, "chain_v3")
+    with open(paf) as fh:
+        if fh.read().splitlines() != lines:
+            raise AssertionError("5m %s: PAF differs from phase 5's" % what)
+    buckets = counters.get("chain.launches", 0)
+    shards = counters.get("mesh.shards", 0)
+    wire8 = counters.get("mesh.wire8", 0)
+    D = shards // max(buckets, 1)
+    if buckets <= 0 or k7 != shards or k1a != wire8 * D or k1a <= 0:
+        raise AssertionError("5m %s: %d buckets, mesh.shards %d, mesh.wire8 "
+                             "%d, K7 launches %d, K1a launches %d" % (
+                                 what, buckets, shards, wire8, k7, k1a))
+    padded = counters["chain.padded_anchors"]
+    say("5m", "%s: PAF (%d lines) byte-identical to phase 5's; %d buckets "
+        "over %d shards (mesh.shards %d = K7 shard launches), %d on the 8 B "
+        "wire (mesh.wire8; K1a launches %d); chain.bytes_up %d, %.3f B a "
+        "padded anchor (phase 5: %d, %.3f); chain.gpu_busy %.3f s (phase "
+        "5: %.3f s); wall %.3f s (phase 5: %.3f s)" % (
+            what, len(lines), buckets, D, shards, wire8, k1a,
+            counters["chain.bytes_up"], counters["chain.bytes_up"] / padded,
+            ph5_counters["chain.bytes_up"],
+            ph5_counters["chain.bytes_up"] /
+            ph5_counters["chain.padded_anchors"],
+            stages.get("chain.gpu_busy", (0.0,))[0],
+            PH5["stages"].get("chain.gpu_busy", (0.0,))[0], wall, PH5["wall"]))
+    report("5m", what, wall, WORKLOAD["n_reads"], stages, counters)
+    return k1a, k7
+
+
+def phase_mesh_path(tmp, ref, reads, lines, ph5_counters):
+    """Phase 5m (i), (ii), (v) and the dry run: `--mesh 1` through the
+    CLI, the batch pipeline over two shards of cuda:0, `--mesh <cards>`
+    where there is more than one card, and `dryrun_multichip` on two
+    shards of cuda:0. Returns (ii)'s K1a and K7 launches."""
+    from mm2tpu_torch.parallel.dryrun import dryrun_multichip
+    from mm2tpu_torch.parallel.mesh import make_mesh
+    args = (ref, reads, lines, ph5_counters)
+    mesh_run(tmp, "i", "(i) --mesh 1", *args, argv=("--mesh", "1"))
+    launches = mesh_run(tmp, "ii", "(ii) two shards on cuda:0", *args,
+                        mesh=make_mesh(2, devices=MESH_ONE_CARD))
+    n = torch.cuda.device_count()
+    if n > 1:
+        mesh_run(tmp, "v", "(v) --mesh %d" % n, *args,
+                 argv=("--mesh", str(n)))
+    else:
+        say("5m", "(v) torch.cuda.device_count() = 1: a mesh over more than "
+            "one card is unverified (every mesh here is shards of cuda:0)")
+    say("5m", dryrun_multichip(2, devices=list(MESH_ONE_CARD)))
+    if n > 1:
+        say("5m", "(v) " + dryrun_multichip(n))
+    return launches
+
+
+def wire8_work(p8, N, cap):
+    """(bytes, int32 instructions) of K1a on `pack_tasks8`'s planes: the
+    planes read once and f and prel (6 B an anchor) written once; K1's
+    candidates."""
+    _, ops = chain_work(p8[6], N, cap, 0, OPS_PER_CANDIDATE["chain_v3"])
+    return sum(a.nbytes for a in p8) + 6 * p8[0].size, ops
+
+
+def phase_mesh_kernels(ref, reads, clock):
+    """Phase 5m (iii) and (iv) on phase 5's index and reads: the sharded
+    probe at MESH_PROBE_SHARDS shards of cuda:0 against the replicated
+    K5, every read's minimizers as queries; at the largest map-ont bucket
+    decode8 against the 16 B planes and both wires timed (upload, decode,
+    K1); K1a and the mesh step held against their plain version on the
+    check bucket. Returns {name: (ms, plain ms, work, max abs err)}."""
+    from mm2tpu_torch import cli
+    from mm2tpu_torch.mapping import pipeline as pl
+    from mm2tpu_torch.ops import chain_packed as cp
+    from mm2tpu_torch.ops import seed_device as sd
+    from mm2tpu_torch.parallel import mesh as pm
+    t0 = time.perf_counter()
+    io, mo = cli.set_opt(None)
+    io, mo = cli.set_opt("map-ont", io, mo)
+    mi = next(cli.index_parts(ref, io, n_threads=3))
+    cli.mapopt_update(mo, mi)
+    ctxs = [c for c in (pl._prepare(mi, [seq], mo, name)
+                        for name, seq in read_fasta(reads))
+            if not isinstance(c, pl.FragResult)]
+    say("5m", "index (%d keys) and host seeding of %d reads in %.3f s" % (
+        len(mi.keys), len(ctxs), time.perf_counter() - t0))
+
+    # (iii) the sharded probe against the replicated one
+    qs = [sd.split_query_minimizers(c.mv)[0] for c in ctxs if len(c.mv)]
+    B = -(-len(qs) // max(MESH_PROBE_SHARDS)) * max(MESH_PROBE_SHARDS)
+    q = np.full((B, max(len(x) for x in qs)), sd.PAD_Q, np.int64)
+    for r, x in enumerate(qs):
+        q[r, :len(x)] = x
+    index = sd.prepare_index_device(mi, DEVICE)
+    qt = torch.from_numpy(q).to(DEVICE)
+    rep_ms, want = median_ms(lambda: sd.probe_counts(
+        index["keys"], index["start"], index["cnt"], qt))
+    want = tuple(t.cpu() for t in want)
+    Q = q.size
+    meshes = [pm.make_mesh(D, devices=[MESH_ONE_CARD[0]] * D)
+              for D in MESH_PROBE_SHARDS]
+    if torch.cuda.device_count() > 1:   # (v): over the cards as well
+        meshes.append(pm.make_mesh())
+    for mesh in meshes:
+        D = len(mesh)
+        keys, st, cnt, _ = pm.shard_index_arrays(mi.keys, mi.start, mi.cnt,
+                                                 D)
+        shards = pm.shard_index(mesh, keys, st, cnt)   # on the card once
+        step = pm.sharded_probe_step(mesh)
+        ms, got = median_ms(lambda: step(shards, q).result())
+        tensors_equal("sharded probe at D = %d != the replicated K5" % D,
+                      got, want)
+        steps = max(1, int(np.ceil(np.log2(len(keys) // D + 1))))
+        # each shard reads every query and writes its (start, cnt); the
+        # all-gather and the reduce-scatter move (D - 1) x 8 B a query each
+        work = (D * 16 * Q + (D - 1) * 16 * Q,
+                D * OPS_PER_PROBE_STEP * steps * Q)
+        say("5m", "(iii) sharded probe, D = %d shards (%s), %d queries "
+            "(%d reads' minimizers, %d hits): (start, cnt) == the replicated "
+            "K5's; %.3f ms a step (upload of the queries, all-gather, D K5 "
+            "launches, reduce-scatter, gather; the key shards on the card; "
+            "median of 5) against the replicated K5 %.3f ms (index and "
+            "queries on the card); bound %.4f ms (%s, "
+            "collectives %d B)" % (
+                D, ",".join(str(d) for d in mesh), Q, len(qs),
+                int((want[1] > 0).sum()), ms, rep_ms,
+                *bound(*work, clock), (D - 1) * 16 * Q))
+
+    # (iv) the 8 B wire at the largest bucket, K1a and K7 at the check one
+    iter_cap = min(1024, mo.max_chain_iter)
+    groups = {}
+    for c in ctxs:
+        if len(c.sr.anchors):
+            groups.setdefault((c.gap_ref, c.gap_qry,
+                               pl.bucket_for(len(c.sr.anchors))),
+                              []).append(c.sr.anchors)
+
+    def bucket(key):
+        tasks = groups[key][:pl.B_SIZES[-1]]
+        B = next(b for b in pl.B_SIZES if b >= len(tasks))
+        tasks += [np.zeros((0, 2), np.uint64)] * (B - len(tasks))
+        kw = dict(max_dist_x=key[0], max_dist_y=key[1], bw=mo.bw,
+                  iter_cap=iter_cap, gap_scale=float(mo.chain_gap_scale),
+                  is_cdna=False, n_segs=1)
+        p8 = cp.pack_tasks8(tasks, key[2])
+        if p8 is None:
+            raise AssertionError("the bucket (%d, %d) does not fit the 8 B "
+                                 "wire" % (B, key[2]))
+        return tasks, kw, p8
+
+    def k1a(p8, kw, **extra):
+        return cp.chain_scores_packed8(*cp.planes_to_torch(*p8, DEVICE),
+                                       **kw, **extra)
+
+    largest = max(groups, key=lambda k: (k[2], len(groups[k])))
+    tasks, kw, p8 = bucket(largest)
+    N = largest[2]
+    p16 = cp.pack_tasks16(tasks, N)
+    dec = cp.decode8(*cp.planes_to_torch(*p8[:6], DEVICE))
+    hi, lo, yhi, ylo, n16 = cp.planes_to_torch(*p16[:5], DEVICE)
+    live = torch.arange(N, device=DEVICE) < n16
+    tensors_equal("decode8 hi, lo != the 16 B planes'", dec[:2], (hi, lo))
+    tensors_equal("decode8 qi, span, sid != the 16 B planes' within n",
+                  [torch.where(live, t, 0) for t in dec[2:]],
+                  [torch.where(live, t, 0)
+                   for t in cp.derive_qss(yhi, ylo)])
+    planes8 = cp.planes_to_torch(*p8[:6], DEVICE)
+    dec_ms, _ = median_ms(lambda: cp.decode8(*planes8))
+    ms8, out8 = median_ms(lambda: k1a(p8, kw))
+    ms16, out16 = median_ms(lambda: cp.chain_scores_packed(
+        *cp.planes_to_torch(*p16, DEVICE), **kw))
+    tensors_equal("K1a != K1 on the 16 B wire", out8, out16)
+    step8 = pm.sharded_chain_step8(pm.make_mesh(2, devices=MESH_ONE_CARD),
+                                   **kw)
+    ms_mesh, got = median_ms(lambda: step8(*p8).result())
+    tensors_equal("the mesh step over two shards != K1a", got,
+                  tuple(t.cpu() for t in out8))
+    up8, up16 = sum(a.nbytes for a in p8), sum(a.nbytes for a in p16)
+    say("5m", "(iv) the largest map-ont bucket (B, N) = (%d, %d), %d "
+        "anchors: decode8(pack_tasks8) on the card == the 16 B planes; up "
+        "%d B on the 8 B wire (%.3f B a padded anchor) against %d B (%.3f); "
+        "upload + decode + K1 %.3f ms against upload + K1 %.3f ms on the "
+        "16 B wire (median of 5; the decode alone %.3f ms), f and prel "
+        "equal; the mesh step over two shards of cuda:0 %.3f ms (upload, "
+        "decode, K1 a shard, gather), equal" % (
+            len(tasks), N, sum(len(t) for t in tasks), up8,
+            up8 / (len(tasks) * N), up16, up16 / (len(tasks) * N), ms8, ms16,
+            dec_ms, ms_mesh))
+    check = max((k for k in groups if k[2] <= MESH_PLAIN_MAX_N),
+                key=lambda k: (min(len(groups[k]), pl.B_SIZES[-1]) * k[2]))
+    tasks, kw, p8 = bucket(check)
+    N = check[2]
+    ms, out = median_ms(lambda: k1a(p8, kw))
+    plain_ms, want = median_ms(
+        lambda: k1a(p8, kw, chain_fn=cp.chain_scores_plain), reps=1,
+        warmup=False)
+    err = chain_err("K1a at (%d, %d)" % (len(tasks), N), *out, *want)
+    ms7, got = median_ms(lambda: step8(*p8).result())
+    want = tuple(t.cpu() for t in want)
+    err7 = chain_err("the mesh step at (%d, %d)" % (len(tasks), N), *got,
+                     *want)
+    work = wire8_work(p8, N, iter_cap)
+    say("5m", "K1a and the two-shard mesh step at the check bucket (B, N) = "
+        "(%d, %d), %d anchors: f and prel equal their plain version "
+        "(decode8, then the plain K1); K1a %.3f ms, the mesh step %.3f ms, "
+        "the plain version %.3f ms (one call); bound %.4f ms (%s)" % (
+            len(tasks), N, sum(len(t) for t in tasks), ms, ms7, plain_ms,
+            *bound(*work, clock)))
+    return {"chain_packed8": (ms, plain_ms, work, err),
+            "mesh_chain_step8": (ms7, plain_ms, work, err7),
+            "shapes": ((len(tasks), N), largest[2], ms8, ms16)}
+
+
 def read_fasta(path):
     """(name, sequence) pairs of a FASTA file."""
     recs = []
@@ -2186,13 +2559,14 @@ def kernel_line(name, source, replaces, launches, max_err, times, work,
             "library_ms": None}
 
 
-PHASES = ("1", "2", "3", "3b", "4", "5", "5s", "5r", "6", "7", "8", "9",
-          "10")
+PHASES = ("1", "2", "3", "3b", "4", "5", "5s", "5r", "5m", "6", "7", "8",
+          "9", "10")
 # the deep parity runs (paths mapped again through the plain versions):
 # run with --deep or when named in --phases
 DEEP = ("7", "10")
 # phases that take another phase's outputs
-NEEDS = {"5s": ("5",), "5r": ("5",), "6": ("5",), "7": ("5", "6"),
+NEEDS = {"5s": ("5",), "5r": ("5",), "5m": ("5",), "6": ("5",),
+         "7": ("5", "6"),
          "10": ("8", "9")}
 
 
@@ -2235,7 +2609,7 @@ def main(argv=None) -> int:
     k3 = phase_ext_kernel_vs_plain() if "3" in run else None
     k4 = phase_exts2_kernel_vs_plain() if "3b" in run else None
     k2 = phase_v2_kernel_vs_plain() if "4" in run else None
-    launches = ext_launches = sr = tx = seed = stream = None
+    launches = ext_launches = sr = tx = seed = stream = mesh = None
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         if "5" in run:
             ref, reads, lines, launches, ph5 = phase_main_path(tmp)
@@ -2249,6 +2623,9 @@ def main(argv=None) -> int:
             stream = {"chain_v3": phase_stream_path(tmp, ref, reads, lines)}
             stream.update(phase_stream_ext(tmp, ref, reads))
             phase_split_prefix(tmp, ref, reads)
+        if "5m" in run:
+            mesh_launches = phase_mesh_path(tmp, ref, reads, lines, ph5)
+            mesh = phase_mesh_kernels(ref, reads, clock)
         if "6" in run:
             sam, ext_launches = phase_sam(tmp, ref, reads)
         if "7" in run:
@@ -2279,6 +2656,12 @@ def main(argv=None) -> int:
             B, N, *V2_SHAPES[-1], *EXT_SHAPES[-1][:3], EXTS2_SHAPES[-1][0],
             *EXTS2_SHAPES[-1][1], *EXTS2_SHAPES[-1][2], HBM_BYTES_S, SMS,
             INT32_LANES, clock))
+    if mesh:
+        (B8, N8), n_large, ms8, ms16 = mesh["shapes"]
+        say(11, "K1a (decode8 + K1) and K7 (the mesh step over two shards "
+            "of cuda:0) at the check bucket (%d, %d); at the largest "
+            "bucket, N = %d: the 8 B wire %.3f ms, the 16 B wire %.3f ms "
+            "(upload included)" % (B8, N8, n_large, ms8, ms16))
     k2_launches = None if sr is None and tx is None else \
         (sr[3] if sr else 0) + (tx[2] if tx else 0)
     lines = []
@@ -2318,6 +2701,18 @@ def main(argv=None) -> int:
             # output: the sort step that follows the build
             line["library_ms"] = lib_ms
             lines.append(line)
+    if mesh:
+        for (name, source, replaces), n in zip(
+                (("chain_packed8", "mm2tpu_torch/ops/chain_packed.py",
+                  "mm2tpu/ops/chain_packed.py:191"),
+                 ("mesh_chain_step8", "mm2tpu_torch/parallel/mesh.py",
+                  "mm2tpu/parallel/mesh.py:95")), mesh_launches):
+            ms, plain_ms, work, err = mesh[name]
+            # launches: in phase 5m (ii), the batch pipeline over two
+            # shards of cuda:0 (K1a: a shard of a bucket on the 8 B wire;
+            # K7: a shard of a bucket)
+            lines.append(kernel_line(name, source, replaces, n, err,
+                                     (ms, plain_ms), work, clock))
     for line in lines:
         # launches in phase 5r's stream runs: K1 in (ii), K2, K3 and K4 in
         # (v); the stream mode seeds on the host

@@ -14,7 +14,10 @@ package's is `stream`). In `--map-mode stream` every chaining task is
 placed on its own (`--chain-backend auto`: by the H100 cost model and
 the card's queue; `gpu`: all on K1/K2 at B = 1; `native`, `python`: the
 host DP), on a pool of `-t` threads whose results are emitted in input
-order. `--split-prefix` works in both modes. Usage:
+order. `--split-prefix` works in both modes. `--mesh N` (batch mode)
+splits each bucket's rows over N shards: the cards cuda:0 .. N-1 with
+`--device cuda` (fewer visible cards is an error, where the JAX package
+quietly takes fewer), N CPU shards with `--device cpu`. Usage:
 
     python -m mm2tpu_torch.cli -x map-ont [--device cuda] ref.fa reads.fa
     python -m mm2tpu_torch.cli -x map-ont --map-mode stream \
@@ -27,6 +30,8 @@ order. `--split-prefix` works in both modes. Usage:
     python -m mm2tpu_torch.cli -x splice [-a] [--device cuda] ref.fa reads.fa
     python -m mm2tpu_torch.cli -x map-ont --seed-backend gpu [--device cuda] \
         ref.fa reads.fa
+    python -m mm2tpu_torch.cli -x map-ont --mesh N [--device cuda] ref.fa \
+        reads.fa
 """
 from __future__ import annotations
 
@@ -55,6 +60,7 @@ from .options import (set_opt, mapopt_update, check_opt, MapOptions, IdxOptions,
                       MM_F_SPLICE, MM_F_SPLICE_FOR, MM_F_SPLICE_REV,
                       MM_F_HARD_MLEVEL, MM_F_NO_END_FLT, MM_F_INDEPEND_SEG,
                       MM_F_LONG_CIGAR, MM_F_NO_QUAL, MM_F_HEAP_SORT)
+from .parallel.mesh import make_mesh
 from .utils import profiling, timing
 
 # ---- copied verbatim from mm2tpu/cli.py ----
@@ -557,8 +563,6 @@ def emit(mi, mo: MapOptions, frag, res, out) -> None:
 
 def _unsupported(args, mo: MapOptions) -> Optional[str]:
     """What this slice of the port does not run, by ROADMAP item."""
-    if args.mesh:
-        return "--mesh (multi-GPU, ROADMAP M8)"
     if args.hosts:
         return "--hosts (multi-host, ROADMAP M9)"
     if args.seed_backend == "tpu":
@@ -598,6 +602,11 @@ def build_torch_parser():
                 "constants of mm2tpu_torch/data) and the card's queue, gpu "
                 "= K1/K2 on --device, native/python = the exact host DP "
                 "[auto]")
+    act = next(a for a in p._actions if a.dest == "mesh")
+    act.help = ("split each batch bucket's rows over N shards (implies "
+                "--map-mode batch): the cards cuda:0..N-1 with --device "
+                "cuda (fewer visible cards is an error), N CPU shards with "
+                "--device cpu")
     act = next(a for a in p._actions if a.dest == "map_mode")
     act.help = ("batch = one chaining launch per size bucket of reads; "
                 "stream = each read on its own, each chaining task placed "
@@ -613,7 +622,7 @@ def build_torch_parser():
 
 
 def main(argv: Optional[List[str]] = None, *, chain_fn=None,
-         ext_fn=None, exts2_fn=None, seed_fn=None) -> int:
+         ext_fn=None, exts2_fn=None, seed_fn=None, mesh=None) -> int:
     """Run the CLI on `argv`; returns the exit code. `chain_fn` replaces
     the chaining function of every batch (see
     `ops.chain_packed.chain_scores_packed`), `ext_fn` and `exts2_fn` the
@@ -623,17 +632,19 @@ def main(argv: Optional[List[str]] = None, *, chain_fn=None,
     chaining of every bucket of `--seed-backend gpu` (see
     `ops.seed_device.seed_chain`): a check runs the same arguments
     through the kernels' plain versions with them. They apply to batch
-    mode only. The cost model that `--router-params` loads, and a
+    mode only. `mesh` (`parallel.mesh.make_mesh`) takes the place of the
+    mesh that `--mesh` builds, as when a check puts two shards on one
+    card. The cost model that `--router-params` loads, and a
     finished warm-up of the card with its failure, are dropped when the
     call returns."""
     try:
-        return _main(argv, chain_fn, ext_fn, exts2_fn, seed_fn)
+        return _main(argv, chain_fn, ext_fn, exts2_fn, seed_fn, mesh)
     finally:
         costmodel.reset_default_model()
         costmodel.reset_probe()
 
 
-def _main(argv, chain_fn, ext_fn, exts2_fn, seed_fn) -> int:
+def _main(argv, chain_fn, ext_fn, exts2_fn, seed_fn, mesh) -> int:
     argv = argv if argv is not None else sys.argv[1:]
     # ketopt optional-argument semantics (as mm2tpu.cli.main)
     argv = ["--cs=short" if a == "--cs" else a for a in argv]
@@ -661,6 +672,8 @@ def _main(argv, chain_fn, ext_fn, exts2_fn, seed_fn) -> int:
         print("[ERROR] mm2tpu_torch does not support %s yet" % why,
               file=sys.stderr)
         return 1
+    if args.mesh or mesh is not None:
+        args.map_mode = "batch"   # as in mm2tpu.cli: --mesh is batch mode
     if args.map_mode == "stream":
         # device seeding is batch-only, as in the JAX package; the batch
         # hooks have no stream counterpart
@@ -672,8 +685,17 @@ def _main(argv, chain_fn, ext_fn, exts2_fn, seed_fn) -> int:
                                          seed_fn)):
             raise ValueError("chain_fn, ext_fn, exts2_fn and seed_fn apply "
                              "to --map-mode batch only")
+    if args.mesh and mesh is None:
+        # cuda: the cards cuda:0 .. N-1, or an error naming how many are
+        # visible; cpu: N shards on the CPU
+        try:
+            mesh = make_mesh(args.mesh, devices=["cpu"] * args.mesh
+                             if args.device == "cpu" else None)
+        except ValueError as e:
+            print("[ERROR] --mesh %d: %s" % (args.mesh, e), file=sys.stderr)
+            return 1
     try:
-        device = resolve_device(args.device)
+        device = resolve_device(mesh[0] if mesh else args.device)
     except RuntimeError as e:
         print("[ERROR] %s" % e, file=sys.stderr)
         return 1
@@ -682,7 +704,7 @@ def _main(argv, chain_fn, ext_fn, exts2_fn, seed_fn) -> int:
         else sys.stdout
     try:
         rc = _run(args, argv, io, mo, device, out, chain_fn, ext_fn,
-                  exts2_fn, seed_fn)
+                  exts2_fn, seed_fn, mesh)
     finally:
         if out is not sys.stdout:
             out.close()
@@ -696,7 +718,7 @@ def _main(argv, chain_fn, ext_fn, exts2_fn, seed_fn) -> int:
 
 
 def _run(args, argv, io, mo: MapOptions, device, out, chain_fn,
-         ext_fn, exts2_fn, seed_fn) -> int:
+         ext_fn, exts2_fn, seed_fn, mesh=None) -> int:
     parts = index_parts(args.target, io, n_threads=args.t)
     with profiling.stage("index"):
         mi = next(parts, None)
@@ -761,7 +783,7 @@ def _run(args, argv, io, mo: MapOptions, device, out, chain_fn,
             n_mapped = map_all(args.query, mi, mo, out, device, chain_fn,
                                ext_fn, exts2_fn, seed_fn, part_idx=n_parts,
                                n_threads=max(1, args.t),
-                               map_mode=args.map_mode)
+                               map_mode=args.map_mode, mesh=mesh)
             timing.log("worker_pipeline", "mapped %d sequences" % n_mapped)
         n_parts += 1
         mi = nxt
@@ -773,9 +795,10 @@ def _run(args, argv, io, mo: MapOptions, device, out, chain_fn,
 
 def map_batch(mi, mo: MapOptions, batch, consume, device,
               chain_fn=None, ext_fn=None, exts2_fn=None,
-              seed_fn=None) -> None:
+              seed_fn=None, mesh=None) -> None:
     """Batched mapping of one mini-batch (mm2tpu.cli._map_batch): paired
-    orientation and INDEPEND_SEG splitting as in mm2tpu.cli."""
+    orientation and INDEPEND_SEG splitting as in mm2tpu.cli; with `mesh`,
+    each bucket's rows are split over its devices."""
     from .mapping.pipeline import map_frags_batched
 
     tasks, meta, flips = [], [], []
@@ -797,7 +820,7 @@ def map_batch(mi, mo: MapOptions, batch, consume, device,
     ress = map_frags_batched(mi, [t[0] for t in tasks], mo,
                              [t[1] for t in tasks], device,
                              chain_fn=chain_fn, ext_fn=ext_fn,
-                             exts2_fn=exts2_fn, seed_fn=seed_fn)
+                             exts2_fn=exts2_fn, seed_fn=seed_fn, mesh=mesh)
     frag_res = {}
     for (fi, seg), r in zip(meta, ress):
         if seg is None or fi not in frag_res:
@@ -862,13 +885,14 @@ def map_one_frag(mi, mo: MapOptions, frag, device):
 def map_all(query_paths, mi, mo: MapOptions, out, device,
             chain_fn=None, ext_fn=None, exts2_fn=None, seed_fn=None, *,
             part_idx: int = 0, n_threads: int = 1,
-            map_mode: str = "batch") -> int:
+            map_mode: str = "batch", mesh=None) -> int:
     """Map every query mini-batch against one index part and emit in
     input order, or with --split-prefix dump the part's raw hits to its
     temporary file (mm2tpu.cli._map_all, map.c:571-585, mm_split_init).
     Returns the number of sequences mapped.
 
-    Batch mode maps a mini-batch at a time (`map_batch`). Stream mode
+    Batch mode maps a mini-batch at a time (`map_batch`; with `mesh`,
+    each bucket's rows are split over its devices). Stream mode
     maps each fragment on its own (`map_one_frag`): with one thread in
     this thread, with more on a pool of `n_threads` fed by a reader
     thread, whose results are consumed in submission order (the
@@ -904,7 +928,7 @@ def map_all(query_paths, mi, mo: MapOptions, out, device,
     if map_mode == "batch":
         for batch in reader.batches():
             map_batch(mi, mo, batch, consume, device, chain_fn, ext_fn,
-                      exts2_fn, seed_fn)
+                      exts2_fn, seed_fn, mesh)
     else:
         counted = _count_host_fills() \
             if mo.align_backend == "gpu" and (mo.flag & MM_F_CIGAR) \

@@ -35,7 +35,15 @@
 //     base = min(dq, dr, span[i]) (+1 with the pair bonus).
 //   Both: gap = int(f32(gap) * gap_scale + 0.499f) when gap_scale != 1.
 //   key = sc * 1024 + (1024 - d): the max key picks the best score, and
-//   ties go to the smallest d (the largest j); |sc| < 2^20 keeps it exact.
+//   ties go to the smallest d (the largest j). In int32, as the Pallas
+//   kernels hold it, the key is exact while sc * 1024 + 1024 fits, that
+//   is sc <= 2^21 - 2 (KEY_SCORE_MAX), and wraps without an error past
+//   it. A task's span sum bounds its scores (a step adds at most
+//   span[i]), so each block sums its row's spans first: a row whose sum
+//   is at most KEY_SCORE_MAX runs on the int32 key, bit for bit the
+//   Pallas kernel's; a row over it runs the same DP on an int64 key,
+//   which does not wrap and gives chain_ref.chain_scores_window's f and p
+//   (the Pallas kernels' scores wrap there).
 //   With best_sc = key >> 10, f[i] = best_sc and p[i] = i - d if best_sc >
 //   span[i], else f[i] = span[i] and p[i] = -1. Pad cells (a never-matching
 //   hi sentinel, lo = qi = span = sid = 0) come out as f = 0, p = -1.
@@ -50,7 +58,9 @@
 // pack_tasks16's pad, which the callers guarantee: pad against pad fails
 // the dr/dq gates of every contract (dr = dq = 0), a real anchor against a
 // pad fails hi (the pad's hi is the sentinel -0x7FFFFF0). So a launch costs
-// sum(n) steps, not B x N, and an empty row only its tail stores.
+// sum(n) steps, not B x N, and an empty row only its tail stores. Before
+// its steps a block sums span[0..n) (one coalesced pass and a block
+// reduction) to pick the key's width.
 //
 // What bounds it on the H100: a task is a chain of n dependent steps (f[i]
 // needs the f of the 1024 anchors before it). A step is up to 1024
@@ -78,6 +88,9 @@
 //     the tile and anchor i (with f[i]) into the slot's registers, and goes
 //     on to step i + 1. The other warps go on at once: step i + 1 needs only
 //     slots they own and the anchor tile.
+//   - The int64 key (rows over KEY_SCORE_MAX) reduces a warp by five
+//     __shfl_xor_sync rounds in place of one __reduce_max_sync, and its
+//     partials take 8 B; the rest of the step is the int32 one's.
 //   - Two partial buffers are enough: a warp writes part[(i + 1) & 1] only
 //     after it has passed barrier i. Every read of the step-(i - 1)
 //     partials, which live in that same buffer, was made by the owner warp
@@ -108,6 +121,8 @@ constexpr int SLOTS = WINDOW / THREADS;  // window slots a thread owns
 constexpr int TILE = 1024;               // anchors staged at a time
 constexpr int NEG = -0x20000000;
 constexpr unsigned FULL = 0xffffffffu;
+// the largest score whose int32 key sc * 1024 + 1024 fits: 2^21 - 2
+constexpr long long KEY_SCORE_MAX = (0x7fffffffLL - WINDOW) / WINDOW;
 static_assert(THREADS % 32 == 0 && THREADS >= 32 && WINDOW % THREADS == 0,
               "CHAIN_THREADS: a multiple of 32 that divides 1024");
 
@@ -139,10 +154,20 @@ struct Params {
   int use_gap_scale, exact_log;
 };
 
-// The key of candidate j at distance d for anchor i, or NEG where a gate
-// rejects it.
-template <int kContract>
-__device__ __forceinline__ int pair_key(const Params& P, float a, int d,
+__device__ __forceinline__ int warp_max(int v) {
+  return __reduce_max_sync(FULL, v);
+}
+
+__device__ __forceinline__ long long warp_max(long long v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(FULL, v, o));
+  return v;
+}
+
+// The key (int32 or int64) of candidate j at distance d for anchor i, or
+// NEG where a gate rejects it.
+template <int kContract, typename Key>
+__device__ __forceinline__ Key pair_key(const Params& P, float a, int d,
                                         int hi_j, int lo_j, int qi_j, int f_j,
                                         int sid_j, int hi_i, int lo_i,
                                         int qi_i, int span_i, int sid_i) {
@@ -196,31 +221,27 @@ __device__ __forceinline__ int pair_key(const Params& P, float a, int d,
   }
   if (P.use_gap_scale) gap = scale_gap(gap, P.gap_scale);
   const int sc = wadd(wsub(base_sc, gap), f_j);
-  return wadd(static_cast<int>(static_cast<unsigned>(sc) * WINDOW),
-              WINDOW - d);
+  if constexpr (sizeof(Key) == 4)
+    return wadd(static_cast<int>(static_cast<unsigned>(sc) * WINDOW),
+                WINDOW - d);
+  else
+    return static_cast<long long>(sc) * WINDOW + (WINDOW - d);
 }
 
-template <int kContract>
-__global__ void __launch_bounds__(THREADS, 1)
-chain_kernel(const int* __restrict__ hi, const int* __restrict__ lo,
-             const int* __restrict__ qi, const int* __restrict__ span,
-             const int* __restrict__ sid, const int* __restrict__ n_rows,
-             const float* __restrict__ avg, int* __restrict__ f_out,
-             int* __restrict__ p_out, int N, Params P) {
+// The DP of one task row (block) on a Key of int32 or int64: the tiles up
+// to n, then the stores past them. `part` is the kernel's partial buffer
+// as Key[2][WARPS].
+template <int kContract, typename Key>
+__device__ __forceinline__ void chain_row(
+    const int* const (&planes)[5], const int* __restrict__ span,
+    int* __restrict__ f_out, int* __restrict__ p_out, size_t row, int n,
+    int N, float a, const Params& P, int (*tile)[TILE], int* tile_f,
+    int* tile_p, Key (*part)[WARPS]) {
   constexpr bool kUniseg = kContract == UNISEG;
   constexpr int kFields = kUniseg ? 4 : 5;  // hi, lo, qi, span (, sid)
-  __shared__ int tile[kFields][TILE];
-  __shared__ int tile_f[TILE];
-  __shared__ int tile_p[TILE];
-  __shared__ int part[2][WARPS];
-
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const size_t row = static_cast<size_t>(blockIdx.x) * N;
-  const int n = min(max(n_rows[blockIdx.x], 0), N);
-  const float a = avg[blockIdx.x];
-  const int* planes[5] = {hi, lo, qi, span, sid};
 
   // the window slots tid + k * THREADS; a slot is read only once the step
   // of its anchor has written it (d <= i)
@@ -248,17 +269,16 @@ chain_kernel(const int* __restrict__ hi, const int* __restrict__ lo,
       const int span_i = next[3];
       const int sid_i = kUniseg ? 0 : next[kFields - 1];
       const int dmax = min(P.cap, i);
-      int best = NEG;
+      Key best = NEG;
 #pragma unroll
       for (int k = 0; k < SLOTS; ++k) {
         const int d = ((i - 1 - (tid + k * THREADS)) & (WINDOW - 1)) + 1;
         if (d <= dmax)
-          best = max(best, pair_key<kContract>(P, a, d, s_hi[k], s_lo[k],
-                                               s_qi[k], s_f[k], s_sid[k],
-                                               hi_i, lo_i, qi_i, span_i,
-                                               sid_i));
+          best = max(best, pair_key<kContract, Key>(
+                               P, a, d, s_hi[k], s_lo[k], s_qi[k], s_f[k],
+                               s_sid[k], hi_i, lo_i, qi_i, span_i, sid_i));
       }
-      best = __reduce_max_sync(FULL, best);
+      best = warp_max(best);
       if (lane == 0) part[i & 1][warp] = best;
       // anchor i + 1, read before the barrier so that no warp waits on
       // shared memory after it (past the tile's end it is never used)
@@ -267,14 +287,15 @@ chain_kernel(const int* __restrict__ hi, const int* __restrict__ lo,
       __syncthreads();
       const int own = i & (WINDOW - 1);
       if (warp == (own % THREADS) >> 5) {
-        const int m = __reduce_max_sync(FULL,
-                                        lane < WARPS ? part[i & 1][lane] : NEG);
+        const Key m = warp_max(lane < WARPS ? part[i & 1][lane] : Key(NEG));
         if (lane == (own & 31)) {
-          const int best_sc = m >> 10;
+          const int best_sc = static_cast<int>(m >> 10);
           const bool better = best_sc > span_i;
           const int f_i = better ? best_sc : span_i;
           tile_f[s] = f_i;
-          tile_p[s] = better ? i - (WINDOW - (m & (WINDOW - 1))) : -1;
+          tile_p[s] = better ? i - (WINDOW - static_cast<int>(
+                                                 m & (WINDOW - 1)))
+                             : -1;
           // slot own held j = i - 1024, which only this thread reads
 #pragma unroll
           for (int k = 0; k < SLOTS; ++k)
@@ -300,6 +321,46 @@ chain_kernel(const int* __restrict__ hi, const int* __restrict__ lo,
     f_out[row + i] = span[row + i];
     p_out[row + i] = -1;
   }
+}
+
+template <int kContract>
+__global__ void __launch_bounds__(THREADS, 1)
+chain_kernel(const int* __restrict__ hi, const int* __restrict__ lo,
+             const int* __restrict__ qi, const int* __restrict__ span,
+             const int* __restrict__ sid, const int* __restrict__ n_rows,
+             const float* __restrict__ avg, int* __restrict__ f_out,
+             int* __restrict__ p_out, int N, Params P) {
+  constexpr int kFields = kContract == UNISEG ? 4 : 5;
+  __shared__ int tile[kFields][TILE];
+  __shared__ int tile_f[TILE];
+  __shared__ int tile_p[TILE];
+  __shared__ long long part[2][WARPS];  // Key[2][WARPS] for either Key
+
+  const int tid = threadIdx.x;
+  const size_t row = static_cast<size_t>(blockIdx.x) * N;
+  const int n = min(max(n_rows[blockIdx.x], 0), N);
+  const float a = avg[blockIdx.x];
+  const int* const planes[5] = {hi, lo, qi, span, sid};
+
+  // the row's span sum, which bounds its scores: the key's width
+  long long bound = 0;
+  for (int t = tid; t < n; t += THREADS) bound += span[row + t];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) bound += __shfl_xor_sync(FULL, bound, o);
+  if ((tid & 31) == 0) part[0][tid >> 5] = bound;
+  __syncthreads();
+  bound = 0;
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) bound += part[0][w];
+  __syncthreads();  // part is the steps' from here
+
+  if (bound > KEY_SCORE_MAX)
+    chain_row<kContract, long long>(planes, span, f_out, p_out, row, n, N,
+                                    a, P, tile, tile_f, tile_p, part);
+  else
+    chain_row<kContract, int>(planes, span, f_out, p_out, row, n, N, a, P,
+                              tile, tile_f, tile_p,
+                              reinterpret_cast<int (*)[WARPS]>(part));
 }
 
 template <int kContract>

@@ -9,9 +9,10 @@ re-seed trigger), `_post_chain` (everything after chaining) and
 `_align_regs`, with `BUCKETS`/`bucket_for` from
 `mm2tpu/parallel/batching.py`. Its device seeding round
 (`_seed_device_eligible`, `_seed_device_round`) is ported on
-`ops/seed_device.py`; its mesh steps are not copied. The per-bucket
-chaining call changes, and with `--align-backend gpu` the reads are
-aligned on a thread pool whose extension fills meet in a
+`ops/seed_device.py`. With a mesh (`parallel/mesh.py`) each bucket's
+rows are split over its devices, as in the JAX package's mesh branch.
+The per-bucket chaining call changes, and with `--align-backend gpu`
+the reads are aligned on a thread pool whose extension fills meet in a
 `TorchExtBatcher`.
 
 The stream mode's per-read path, `map_frag` with `_chain_ctx` and
@@ -24,6 +25,7 @@ the device (`extbatch.fill_scope`).
 from __future__ import annotations
 
 import contextlib
+import functools
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
@@ -37,11 +39,13 @@ from ..index.build import MMIndex
 from ..native import lib as native
 from ..ops import card_spans, chain_ref, span_seconds
 from ..ops import seed_device as sd
-from ..ops.chain_packed import (WINDOW, chain_scores_packed, pack_tasks16,
+from ..ops.chain_packed import (WINDOW, chain_scores_packed, count_wide,
+                                derive_qss, pack_tasks8, pack_tasks16,
                                 planes_to_torch, unpack_prel, v_carry_host)
 from ..options import (MapOptions, MM_F_SPLICE, MM_F_SR, MM_F_CIGAR,
                        MM_F_ALL_CHAINS, MM_F_HARD_MLEVEL,
                        MM_SEED_SEG_MASK, MM_MAX_SEG)
+from ..parallel.mesh import gather
 from ..utils import profiling
 from ..utils.hashing import reg_hash
 from . import hit as hit_mod
@@ -312,22 +316,6 @@ def _count_host_fills():
             setattr(native, name, fn)
 
 
-def _to_host(tensors):
-    """Copies of `tensors` for the host, and the CUDA event that says
-    they are done (None on the CPU): on CUDA each goes into pinned host
-    memory by a non-blocking copy on the current stream."""
-    if tensors[0].device.type != "cuda":
-        return tuple(tensors), None
-    out = []
-    for t in tensors:
-        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        h.copy_(t, non_blocking=True)
-        out.append(h)
-    done = torch.cuda.Event()
-    done.record()
-    return tuple(out), done
-
-
 def _seed_device_eligible(opt: MapOptions, ctx: _FragCtx) -> bool:
     """The JAX package's coverage contract of device seeding
     (`mm2tpu/mapping/pipeline.py::_seed_device_eligible`, verbatim)."""
@@ -497,15 +485,12 @@ def _seed_device_round(mi: MMIndex, opt: MapOptions, ctxs: dict,
             _, c = sd.probe_counts(index["keys"], index["start"],
                                    index["cnt"], qt)
             marks()
-            (c,), done = _to_host((c,))
-            jobs.append((chunk, c, done, marks))
+            jobs.append((chunk, gather((dev,), [(c,)]), marks))
             if profiling.enabled:
                 profiling.count("seed.launches")
                 profiling.count("seed.bytes_up", q.nbytes)
-        for chunk, c, done, marks in jobs:
-            if done is not None:
-                done.synchronize()
-            c = c.numpy()
+        for chunk, c, marks in jobs:
+            c = c.result()[0].numpy()
             marks.add("seed.gpu_busy")
             if profiling.enabled:
                 profiling.count("seed.bytes_down", c.nbytes)
@@ -549,15 +534,13 @@ def _seed_device_round(mi: MMIndex, opt: MapOptions, ctxs: dict,
                      max_dist_x=gap_ref, max_dist_y=gap_qry, bw=opt.bw,
                      iter_cap=iter_cap, gap_scale=float(opt.chain_gap_scale),
                      mark=marks)
-            out, done = _to_host(out)
-        return chunk, out, done, marks
+            out = gather((dev,), [out])
+        return chunk, out, marks
 
     def consume(item):
-        chunk, out, done, marks = item
+        chunk, out, marks = item
         with profiling.stage("seed.device_chain"):
-            if done is not None:
-                done.synchronize()
-            hi, lo, yhi, ylo, f, prel, n = (t.numpy() for t in out)
+            hi, lo, yhi, ylo, f, prel, n = (t.numpy() for t in out.result())
         marks.add("seed.gpu_busy", "chain.gpu_busy")
         if profiling.enabled:
             profiling.count("seed.bytes_down", sum(
@@ -573,6 +556,7 @@ def _seed_device_round(mi: MMIndex, opt: MapOptions, ctxs: dict,
                                            total)
                 ctxs[i].sr = SeedResult(a, rep_len, mini_pos,
                                         len(ctxs[i].mv))
+                count_wide([a])
                 p = unpack_prel(prel[r], total)
                 if native_v:
                     v = native.v_carry(f[r, :total], p)
@@ -592,10 +576,23 @@ def _seed_device_round(mi: MMIndex, opt: MapOptions, ctxs: dict,
     return outs
 
 
+@functools.lru_cache(maxsize=256)
+def _sharded_step(mesh, key, packed8: bool):
+    """The mesh's chaining step for a bucket key, made once (the JAX
+    package's `_sharded_step`); `packed8` picks the 8 B wire's."""
+    from ..parallel.mesh import sharded_chain_step, sharded_chain_step8
+    mdx, mdy, bw, iter_cap, gs, is_cdna, n_segs, _N = key
+    mk = sharded_chain_step8 if packed8 else sharded_chain_step
+    return mk(mesh, max_dist_x=mdx, max_dist_y=mdy, bw=bw,
+              iter_cap=iter_cap, gap_scale=gs, is_cdna=is_cdna,
+              n_segs=n_segs)
+
+
 def map_frags_batched(mi: MMIndex, frag_seqs: Sequence[Sequence[str]],
                       opt: MapOptions, qnames: Sequence[Optional[str]],
                       device, *, chain_fn=None, ext_fn=None,
-                      exts2_fn=None, seed_fn=None) -> List[FragResult]:
+                      exts2_fn=None, seed_fn=None,
+                      mesh=None) -> List[FragResult]:
     """Map many fragments with batched chaining on `device` ("cuda" or
     "cpu"): fragments are seeded on the host, their anchor arrays grouped
     into fixed (B, N) buckets, and each bucket chained in one call, then
@@ -628,7 +625,22 @@ def map_frags_batched(mi: MMIndex, frag_seqs: Sequence[Sequence[str]],
     host's native extension, the JAX package's placement rule. `ext_fn`
     and `exts2_fn` replace the extension function of every extd2 and
     splice flush (see `ops.ksw2_extd2.extd2_batch` and
-    `ops.ksw2_exts2.exts2_batch`)."""
+    `ops.ksw2_exts2.exts2_batch`).
+
+    With `mesh` (`parallel.mesh.make_mesh`) each bucket's B is rounded up
+    to a multiple of the mesh size and its rows are split over the mesh's
+    devices: on the 8 B delta wire (`sharded_chain_step8`) where
+    `pack_tasks8` can pack the bucket, else on raw planes
+    (`sharded_chain_step`), as the JAX package's mesh branch does.
+    `device` must then be the mesh's first device, which runs device
+    seeding and the extension batcher (the JAX package does not shard
+    them either). `--profile` adds `mesh.shards` (shard launches) and
+    `mesh.wire8` (buckets on the 8 B wire); `chain.bytes_up` counts the
+    wire sent.
+
+    A task whose span sum (`ops.chain_packed.score_bound`) could wrap
+    K1/K2's int32 key is keyed in int64 by the kernels themselves, on
+    every path; `--profile` counts it as `chain.wide_key`."""
     if opt.seed_backend == "tpu":
         raise NotImplementedError(
             "--seed-backend tpu runs the JAX package's device seeding; the "
@@ -639,6 +651,13 @@ def map_frags_batched(mi: MMIndex, frag_seqs: Sequence[Sequence[str]],
             "device extension is --align-backend gpu")
     dev = resolve_device(device)
     on_cuda = dev.type == "cuda"
+    if mesh is not None:
+        if chain_fn is not None:
+            raise ValueError("chain_fn replaces the single-device chaining "
+                             "only; the mesh steps run the kernels")
+        if mesh[0] != dev:
+            raise ValueError("the run's device %s is not the mesh's first, "
+                             "%s" % (dev, mesh[0]))
     results: List[Optional[FragResult]] = [None] * len(frag_seqs)
     ctxs: dict = {}
     pending: List[int] = []
@@ -656,6 +675,7 @@ def map_frags_batched(mi: MMIndex, frag_seqs: Sequence[Sequence[str]],
     def run_round(idxs):
         outs = {}
         groups: dict = {}
+        iter_cap = min(WINDOW, opt.max_chain_iter)
         for i in idxs:
             ctx = ctxs[i]
             n = len(ctx.sr.anchors)
@@ -663,7 +683,6 @@ def map_frags_batched(mi: MMIndex, frag_seqs: Sequence[Sequence[str]],
                 outs[i] = (np.zeros((0, 2), np.uint64),
                            np.zeros(0, np.uint64))
                 continue
-            iter_cap = min(WINDOW, opt.max_chain_iter)
             key = (ctx.gap_ref, ctx.gap_qry, opt.bw, iter_cap,
                    float(opt.chain_gap_scale), ctx.is_splice, ctx.n_segs,
                    bucket_for(n))
@@ -677,9 +696,25 @@ def map_frags_batched(mi: MMIndex, frag_seqs: Sequence[Sequence[str]],
             key, chunk = job
             mdx, mdy, bw, iter_cap, gs, is_cdna, n_segs, N = key
             B = next(b for b in B_SIZES if b >= len(chunk))
+            if mesh is not None:
+                B = -(-B // len(mesh)) * len(mesh)
             tasks = [ctxs[i].sr.anchors for i in chunk] + \
                 [empty] * (B - len(chunk))
             with profiling.stage("chain.device"):
+                count_wide(tasks)
+                if mesh is None:
+                    planes = pack_tasks16(tasks, N)
+                    wire8 = raw_p = False
+                else:
+                    # the JAX package's mesh branch: the 8 B wire where
+                    # the bucket fits its exception budget, else the raw
+                    # planes, whose step returns p itself
+                    planes = pack_tasks8(tasks, N)
+                    wire8 = planes is not None
+                    raw_p = not wire8
+                    if raw_p:
+                        hi, lo, yhi, ylo, n_arr, avg = pack_tasks16(tasks, N)
+                        planes = (hi, lo, *derive_qss(yhi, ylo), n_arr, avg)
                 if profiling.enabled:
                     profiling.count("chain.launches")
                     profiling.count("chain.anchors",
@@ -688,33 +723,37 @@ def map_frags_batched(mi: MMIndex, frag_seqs: Sequence[Sequence[str]],
                     # the launch's serial DP steps: its longest row's n
                     profiling.count("chain.steps",
                                     max(len(t) for t in tasks))
-                    profiling.count("chain.bytes_up", 16 * B * N + 8 * B)
-                planes = planes_to_torch(*pack_tasks16(tasks, N), dev)
+                    profiling.count("chain.bytes_up",
+                                    sum(a.nbytes for a in planes))
+                    if mesh is not None:
+                        profiling.count("mesh.shards", len(mesh))
+                        profiling.count("mesh.wire8", int(wire8))
                 with card_spans(on_cuda and profiling.enabled) as spans:
-                    f, prel = chain_scores_packed(
-                        *planes, max_dist_x=mdx, max_dist_y=mdy, bw=bw,
-                        iter_cap=iter_cap, gap_scale=gs, is_cdna=is_cdna,
-                        n_segs=n_segs, chain_fn=chain_fn)
-                (f, prel), done = _to_host((f, prel))
-            return chunk, f, prel, done, spans
+                    if mesh is not None:
+                        out = _sharded_step(mesh, key, wire8)(*planes)
+                    else:
+                        f, prel = chain_scores_packed(
+                            *planes_to_torch(*planes, dev), max_dist_x=mdx,
+                            max_dist_y=mdy, bw=bw, iter_cap=iter_cap,
+                            gap_scale=gs, is_cdna=is_cdna, n_segs=n_segs,
+                            chain_fn=chain_fn)
+                        out = gather((dev,), [(f, prel)])
+            return chunk, out, spans, raw_p
 
         def consume(item):
-            chunk, f, pr, done, spans = item
+            chunk, out, spans, raw_p = item
             with profiling.stage("chain.device"):
-                if done is not None:
-                    done.synchronize()
-                f = f.numpy()
-                pr = pr.numpy()
+                f, pr = (t.numpy() for t in out.result())
             if profiling.enabled:
                 profiling.count("chain.bytes_down", f.nbytes + pr.nbytes)
             if spans:
-                # the kernel launch's own span (`ops.card_spans`)
+                # the kernel launches' own spans (`ops.card_spans`)
                 profiling.add("chain.gpu_busy", span_seconds(spans))
             with profiling.stage("chain.backtrack"):
                 for row, i in enumerate(chunk):
                     anchors = ctxs[i].sr.anchors
                     n = len(anchors)
-                    p = unpack_prel(pr[row], n)
+                    p = pr[row, :n] if raw_p else unpack_prel(pr[row], n)
                     if native_v:
                         v = native.v_carry(f[row, :n], p)
                     else:

@@ -14,7 +14,8 @@ is `chain_v3`'s (K1), and both functions here refuse it.
 
 As with `chain_v3`, the kernel reads each row's n and stops there
 (f = span, p = -1 past it: the DP's value on `pack_tasks16`'s pad);
-the plain version scans all N and ignores n.
+the plain version scans all N and ignores n. A row whose span sum
+exceeds `chain_v3.KEY_SCORE_MAX` is keyed in int64 by both.
 
 `launches` counts kernel launches and `reference_calls` counts runs of
 the plain version, so a caller can show which one did the work.
@@ -24,7 +25,8 @@ from __future__ import annotations
 import torch
 
 from . import count_lock, launching
-from .chain_v3 import NEG, WINDOW, _check_inputs, _ilog2
+from .chain_v3 import NEG, WINDOW, _check_inputs, _ilog2, pair_keys, \
+    wide_rows
 
 launches = 0
 reference_calls = 0
@@ -62,6 +64,7 @@ def chain_scores_v2_reference(hi, lo, qi, span, sid, n, avg, *,
     age = WINDOW - torch.arange(max(cap, 0), 0, -1, dtype=torch.int32,
                                 device=dev)   # 1024 - d, d = cap..1
     zero = torch.zeros((), dtype=torch.int32, device=dev)
+    wide = wide_rows(span)
     f = torch.zeros((B, N), dtype=torch.int32, device=dev)
     p = torch.full((B, N), -1, dtype=torch.int32, device=dev)
     for i in range(N):
@@ -95,10 +98,10 @@ def chain_scores_v2_reference(hi, lo, qi, span, sid, n, avg, *,
         base = min3 + (in_branch & pair_bonus).to(torch.int32)
         if gap_scale != 1.0:
             gap = (gap.to(torch.float32) * gs + half).to(torch.int32)
-        key = (base - gap + f[:, j0:i]) * WINDOW + age[cap - w:]
+        key = pair_keys(base - gap + f[:, j0:i], age[cap - w:], wide)
         best = torch.where(ok, key, NEG).amax(dim=1)
-        best_sc = best >> 10
-        best_d = WINDOW - (best & (WINDOW - 1))
+        best_sc = (best >> 10).to(torch.int32)
+        best_d = WINDOW - (best & (WINDOW - 1)).to(torch.int32)
         better = best_sc > span[:, i]
         f[:, i] = torch.where(better, best_sc, span[:, i])
         p[:, i] = torch.where(better, i - best_d, -1)

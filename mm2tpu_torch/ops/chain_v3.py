@@ -16,6 +16,12 @@ only; past n it writes f = span, p = -1, which is what the DP gives on
 `pack_tasks16`'s pad. The plain version scans all N and ignores n; the
 two agree wherever a row's tail past n is that pad.
 
+The predecessor key sc * 1024 + (1024 - d) is int32, as in the Pallas
+kernel, on a row whose span sum is at most `KEY_SCORE_MAX`; a row over
+it, whose int32 key could wrap, is keyed in int64 by both, and gets
+`chain_ref.chain_scores_window`'s f and p where the Pallas kernel's
+scores wrap.
+
 `launches` counts kernel launches and `reference_calls` counts runs of
 the plain version, so a caller can show which one did the work.
 """
@@ -27,6 +33,10 @@ from . import count_lock, launching
 
 WINDOW = 1024        # lookback cap (chain_pallas.WINDOW)
 NEG = -0x20000000    # masked-key sentinel (chain_pallas_v2.NEG)
+# The largest chain score sc whose int32 key sc * 1024 + 1024 still fits:
+# 2^21 - 2 = 2,097,150. A row whose span sum (a bound of its scores)
+# exceeds it is keyed in int64.
+KEY_SCORE_MAX = (2**31 - 1 - WINDOW) // WINDOW
 
 launches = 0
 reference_calls = 0
@@ -46,6 +56,25 @@ def _ilog2(v: torch.Tensor, exact_max: int) -> torch.Tensor:
         r = torch.where(big, r + shift, r)
         t = torch.where(big, t >> shift, t)
     return r
+
+
+def wide_rows(span: torch.Tensor):
+    """The rows of a (B, N) span plane whose span sum exceeds
+    `KEY_SCORE_MAX`, as a (B, 1) bool tensor, or None where there is no
+    such row (the kernels' choice of key width; the pad's spans are 0)."""
+    wide = span.sum(dim=1, keepdim=True, dtype=torch.int64) > KEY_SCORE_MAX
+    return wide if bool(wide.any()) else None
+
+
+def pair_keys(sc: torch.Tensor, age: torch.Tensor, wide):
+    """The keys sc * 1024 + (1024 - d) of (B, w) scores: int32 (wrapping
+    as the Pallas kernels' do) where `wide` is None, else int64 with the
+    rows `wide` keyed exactly."""
+    key = sc * WINDOW + age
+    if wide is None:
+        return key
+    return torch.where(wide, sc.to(torch.int64) * WINDOW + age,
+                       key.to(torch.int64))
 
 
 def chain_scores_v3_reference(hi, lo, qi, span, n, avg, *, max_dist_x: int,
@@ -70,6 +99,7 @@ def chain_scores_v3_reference(hi, lo, qi, span, n, avg, *, max_dist_x: int,
     half = torch.tensor(0.499, dtype=torch.float32, device=dev)
     age = WINDOW - torch.arange(max(cap, 0), 0, -1, dtype=torch.int32,
                                 device=dev)   # 1024 - d, d = cap..1
+    wide = wide_rows(span)
     f = torch.zeros((B, N), dtype=torch.int32, device=dev)
     p = torch.full((B, N), -1, dtype=torch.int32, device=dev)
     for i in range(N):
@@ -97,10 +127,10 @@ def chain_scores_v3_reference(hi, lo, qi, span, n, avg, *, max_dist_x: int,
             (_ilog2(dd, exact_max) >> 1)
         if gap_scale != 1.0:
             gap = (gap.to(torch.float32) * gs + half).to(torch.int32)
-        key = (min3 - gap + f[:, j0:i]) * WINDOW + age[cap - w:]
+        key = pair_keys(min3 - gap + f[:, j0:i], age[cap - w:], wide)
         best = torch.where(ok, key, NEG).amax(dim=1)
-        best_sc = best >> 10
-        best_d = WINDOW - (best & (WINDOW - 1))
+        best_sc = (best >> 10).to(torch.int32)
+        best_d = WINDOW - (best & (WINDOW - 1)).to(torch.int32)
         better = best_sc > span[:, i]
         f[:, i] = torch.where(better, best_sc, span[:, i])
         p[:, i] = torch.where(better, i - best_d, -1)

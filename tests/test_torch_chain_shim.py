@@ -41,8 +41,8 @@ CASES = [pytest.param(c, name, id="%s-%s" % (
     for c, settings in SETTINGS.items() for name in settings]
 # source edits that must each break the kernel: (old text, new text)
 MUTANTS = {
-    "one_partial_buffer": (("__shared__ int part[2][WARPS];",
-                            "__shared__ int part[1][WARPS];"),
+    "one_partial_buffer": (("__shared__ long long part[2][WARPS];",
+                            "__shared__ long long part[1][WARPS];"),
                            ("part[i & 1]", "part[0]")),
     "no_stores_past_n": (("f_out[row + i] = span[row + i];", ""),
                          ("p_out[row + i] = -1;", ""),
@@ -154,3 +154,32 @@ def test_broken_sources_fail(tmp_path_factory, mutant):
     err, f, p = shim_chain(lib, contract, name)
     f2, p2 = plain(contract, name)
     assert err != 0 or not (torch.equal(f, f2) and torch.equal(p, p2))
+
+
+# the kernel's key-width threshold, lowered in a copy of the source so
+# that N = 2048 rows pass it: the dense row (span sum 30720) goes to the
+# int64 key, the ragged one (22755) and the empty one stay on int32
+KEY_EDIT = ("constexpr long long KEY_SCORE_MAX = (0x7fffffffLL - WINDOW) / "
+            "WINDOW;", "constexpr long long KEY_SCORE_MAX = 25000;")
+
+
+@pytest.fixture(scope="module")
+def kernel_128_wide(tmp_path_factory):
+    return build(tmp_path_factory, "chain_128_wide", ("CHAIN_THREADS=128",),
+                 (KEY_EDIT,))
+
+
+@pytest.mark.parametrize("contract", list(SETTINGS), ids=[
+    "k1" if c is None else "k2_cdna%d_segs%d" % c for c in SETTINGS])
+def test_kernel_source_int64_key_matches_plain(kernel_128_wide, contract):
+    """With the threshold lowered, the dense row runs on the int64 key
+    beside int32 rows in one launch: no score there comes near 2^21, so
+    every cell equals the plain version's (which keys no row in int64 at
+    the real threshold)."""
+    name = next(iter(SETTINGS[contract]))
+    err, f, p = shim_chain(kernel_128_wide, contract, name)
+    assert err == 0
+    span = planes(1 if contract is None else contract[1])[3]
+    assert span.sum(dim=1).tolist()[1] <= 25000 < span.sum(dim=1).tolist()[2]
+    f2, p2 = plain(contract, name)
+    assert torch.equal(f, f2) and torch.equal(p, p2)

@@ -142,6 +142,15 @@ inline int __reduce_max_sync(unsigned, int v) {
   g_warp_bar[w].arrive_and_wait();
   return m;
 }
+inline long long g_warp_buf64[32][32];
+inline long long __shfl_xor_sync(unsigned, long long v, int mask) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  g_warp_buf64[w][lane] = v;
+  g_warp_bar[w].arrive_and_wait();
+  const long long u = g_warp_buf64[w][lane ^ mask];
+  g_warp_bar[w].arrive_and_wait();
+  return u;
+}
 inline int __shfl_up_sync(unsigned, int v, unsigned delta) {
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   g_warp_buf[w][lane] = v;

@@ -177,6 +177,60 @@ assert not bad, bad
     assert not list(tmp_path.glob("sp.*.tmp"))
 
 
+def test_mesh_cli_and_dryrun_run_without_jax(workload, tmp_path):
+    """`--device cpu --mesh 2` and `python -m mm2tpu_torch.parallel.dryrun`
+    in a process that refuses jax and mm2tpu: the mesh PAF equals the
+    single-device PAF, and the dry run passes its three checks."""
+    ref, reads = workload
+    out = {k: tmp_path / k for k in ("one.paf", "mesh.paf")}
+    r = run_python(f"""
+import runpy
+from mm2tpu_torch.cli import main
+from mm2tpu_torch.utils import profiling
+rc = main(["-x", "map-ont", "--device", "cpu", "-o", {str(out["one.paf"])!r},
+           {ref!r}, {reads!r}])
+assert rc == 0, rc
+rc = main(["-x", "map-ont", "--device", "cpu", "--mesh", "2", "--profile",
+           "-o", {str(out["mesh.paf"])!r}, {ref!r}, {reads!r}])
+assert rc == 0, rc
+assert profiling.counters["mesh.shards"] == 2 * \
+    profiling.counters["chain.launches"], profiling.counters
+sys.argv = ["dryrun", "--device", "cpu", "--shards", "2"]
+try:
+    runpy.run_module("mm2tpu_torch.parallel.dryrun", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "mm2tpu")]
+assert not bad, bad
+""")
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "dryrun_multichip OK" in r.stdout
+    one = out["one.paf"].read_text()
+    assert len(one.splitlines()) >= 12
+    assert out["mesh.paf"].read_text() == one
+
+
+@pytest.mark.parametrize("argv", [
+    ["-m", "mm2tpu_torch.cli", "-x", "map-ont", "--device", "cuda",
+     "--mesh", "2"],
+    ["-m", "mm2tpu_torch.parallel.dryrun", "--device", "cuda", "--shards",
+     "2"]], ids=["cli", "dryrun"])
+def test_mesh_on_cuda_without_enough_cards_fails(workload, tmp_path, argv):
+    """A mesh of 2 CUDA shards with fewer than 2 visible cards exits
+    non-zero and names the count; nothing runs on the CPU instead."""
+    if torch.cuda.device_count() >= 2:
+        pytest.skip("this machine has 2 CUDA cards: the mesh would run")
+    ref, reads = workload
+    out = tmp_path / "out.paf"
+    extra = ["-o", str(out), ref, reads] if argv[1].endswith("cli") else []
+    r = subprocess.run([sys.executable, *argv, *extra], cwd=str(REPO),
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode != 0
+    assert "needs 2 devices; %d CUDA devices visible" % \
+        torch.cuda.device_count() in r.stderr
+    assert not out.exists()
+
+
 def test_blocker_really_blocks_jax():
     r = run_python("import jax\n", timeout=120)
     assert r.returncode != 0 and "jax is blocked" in r.stderr
@@ -236,21 +290,23 @@ def test_resolve_device_is_explicit():
             resolve_device("cuda")
 
 
+# the ids are the ones the cases had while `--mesh` was refused too (it
+# runs now: test_mesh_cli_and_dryrun_run_without_jax)
 @pytest.mark.parametrize("flags,item,n_queries", [
-    (["--mesh", "2"], "M8", 1),
-    (["--hosts", "2"], "M9", 1),
+    pytest.param(["--hosts", "2"], "M9", 1, id="flags1-M9-1"),
     # the JAX package's device seeding, refused naming the port's; the id
     # is the one this case had when it expected the M7 refusal
     pytest.param(["--seed-backend", "tpu"], "--seed-backend gpu", 1,
                  id="flags2-M7-1"),
-    (["--align-backend", "tpu"], "--align-backend gpu", 1),
+    pytest.param(["--align-backend", "tpu"], "--align-backend gpu", 1,
+                 id="flags3---align-backend gpu-1"),
     # the JAX package's chaining route, refused naming the port's, and the
     # JAX package's batch-only device seeding asked for in stream mode
     pytest.param(["--chain-backend", "tpu"], "--chain-backend gpu", 1,
                  id="chain-backend-tpu"),
     pytest.param(["--map-mode", "stream", "--seed-backend", "gpu"],
                  "--map-mode batch only", 1, id="stream-seed-backend-gpu"),
-    (["--profile-trace", "tr"], "M10", 1),
+    pytest.param(["--profile-trace", "tr"], "M10", 1, id="flags6-M10-1"),
     pytest.param(["-x", "sr", "--map-mode", "stream", "--chain-backend",
                   "tpu"], "--chain-backend gpu", 2,
                  id="sr-stream-chain-backend-tpu"),
