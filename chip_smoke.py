@@ -83,16 +83,22 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      the reads must map, and only K1 may have chained (its launches,
      anchors, padded anchors and card time from the chain.* counters)
  5s. device seeding on phase 5's genome and reads: (i) the index probe K5
-     and the anchor build K6 (mm2tpu_torch/csrc/seed.cu) against their
-     plain versions on the card, on the full-size index and every read in
-     the contract bucketed as the path buckets it: (start, cnt) of every
-     count probe, the sorted anchors and n of every fused dispatch, and
-     K1's f and p on them for the dispatches of the smallest N (up to
-     SEED_PLAIN_STEPS plain steps) all equal; K5, K6, the sort step,
-     torch.searchsorted and torch.sort timed at the largest dispatch;
-     (ii) `--seed-backend gpu`: its PAF byte-identical to phase 5's, only
-     K5, K6 and K1 launched, with the seed.* counters, seed.gpu_busy,
-     chain.gpu_busy and the idle share
+     and the anchor pipeline K6 (mm2tpu_torch/csrc/seed.cu: probe,
+     count, expand and radix sort into K1's planes) against their plain
+     versions on the card, on the full-size index and every read in the
+     contract bucketed as the path buckets it: (start, cnt) of every
+     count probe, the planes and n of every fused dispatch, and K1's f
+     and p on them for the dispatches of the smallest N (up to
+     SEED_PLAIN_STEPS plain steps) all equal, with the slots K6 sorted
+     (sum n) beside B x N; K5 and torch.searchsorted timed in turns on
+     the largest count probe and the largest dispatch, K6, the old sort
+     step (sort_anchors) and torch.sort of K6's real-slot keys at the
+     largest dispatch, each by the card's own time (a CUDA graph's
+     replay) and by the wrapper's call time, and the launches of one K6
+     call and of the old sort step (torch.profiler); (ii) `--seed-backend
+     gpu`: its PAF byte-identical to phase 5's, only K5, K6 and K1
+     launched, with the seed.* counters, seed.gpu_busy, chain.gpu_busy
+     and the idle share
  5r. the stream mode on phase 5's genome and reads: (i) K1 and K2 (cDNA
      contract) at B = 1 on scripts/train_router_torch.py's synthetic
      tasks, n = 512 to 32768, each timed end to end (pack, upload,
@@ -294,12 +300,9 @@ MIN_MAPPED_SR_SPLICE = 0.90
 # later designs compare) and a DP cell in csrc/ksw2_extd2.cu, counted
 # from the source.
 SMS, INT32_LANES, HBM_BYTES_S = 132, 64, 3.35e12
-# csrc/seed.cu, counted from the source: a step of K5's search (the key's
-# load and address, the 64-bit compare, two selects, the halving), and
-# K6's work for a slot (the search of the tile's scanned counts, the pos
-# load, the strand test, x, y_pos, the sort key and y, two stores) and
-# for a minimizer (its loads, the kept test, its part of the scan)
-OPS_PER_PROBE_STEP, OPS_PER_SLOT, OPS_PER_MINIMIZER = 10, 70, 25
+# K5 and K6 (csrc/seed.cu) are bounded by their bytes alone, counted from
+# what the function must read and write whatever implements it (phase
+# 5s): no instruction count of one algorithm's steps
 # phase 5s holds K1 against its plain version on the seeded anchors of the
 # path's dispatches with the smallest N, up to this many serial steps of
 # the plain version in all (~0.5 ms a step on the card: ~20 s)
@@ -1173,20 +1176,95 @@ def tensors_equal(what, got, want):
     return 0
 
 
+def graph_ms(fn, reps=20):
+    """The card's own time of one call of `fn`: `reps` calls captured in
+    a CUDA graph, the replay timed with CUDA events (median of 5 replays)
+    over reps, in ms; no host time between the launches. Returns it and
+    the last call's result."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        graph.replay()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1) / reps)
+    return float(np.median(times)), out
+
+
+def card_launches(fn):
+    """(launches, card ms, {name: [launches, ms]}) of one call of `fn` as
+    torch.profiler traces it on the card: kernels, memsets and copies,
+    their summed durations, and both by name (cut to 40 characters);
+    (None, None, {}) where the trace shows no device activity (not
+    measured)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not evs:
+        return None, None, {}
+    by_name = {}
+    for e in evs:
+        row = by_name.setdefault(e.name.replace("(anonymous namespace)::",
+                                                "")[:40], [0, 0.0])
+        row[0] += 1
+        row[1] += e.time_range.elapsed_us() / 1e3
+    return len(evs), sum(r[1] for r in by_name.values()), by_name
+
+
+def packed_sort_keys(key, n, index):
+    """The flat real-slot keys that K6 sorts, from the plain build's (B,
+    N) keys (x ^ 2^63) and n: (row, strand, rid, rpos) in the index's
+    widths, as one int64 (every dispatch's width here is below 63)."""
+    B, N = key.shape
+    x = key ^ (-(1 << 63))
+    rid_bits, pos_bits = index["rid_bits"], index["pos_bits"]
+    rows = torch.arange(B, device=key.device)[:, None].expand(B, N)
+    real = torch.arange(N, device=key.device)[None, :] < n.reshape(B, 1)
+    packed = (rows << (rid_bits + pos_bits + 1)) | \
+        (((x >> 63) & 1) << (rid_bits + pos_bits)) | \
+        (((x >> 32) & 0x7FFFFFFF) << pos_bits) | (x & 0xFFFFFFFF)
+    return packed[real].contiguous()
+
+
 def phase_seed_kernels(tmp, ref, reads, clock):
     """Phase 5s (i): K5 and K6 against their plain versions on the card,
     on phase 5's index at full size and every eligible read's minimizers
     bucketed as the path buckets them (`mapping/pipeline.py`'s helpers):
-    every count probe's (start, cnt), every fused dispatch's sorted
-    anchors and n, and f and p of K1 on them for the dispatches of the
-    smallest N within SEED_PLAIN_STEPS; then each timed at the largest
-    dispatch, with the sort step, torch.searchsorted and torch.sort.
+    every count probe's (start, cnt), every fused dispatch's planes and
+    n, and f and p of K1 on them for the dispatches of the smallest N
+    within SEED_PLAIN_STEPS; the slots K6 sorted (sum n) beside B x N.
+    Then timed in turns, each by the card's own time (`graph_ms`) and by
+    the wrapper's call time (`cuda_ms`, 20 calls back to back): K5 and
+    torch.searchsorted on the largest count probe's and the largest
+    dispatch's queries; at the largest dispatch K6 (probe to K1's
+    planes), the old sort step (`sort_anchors` on the plain build's
+    keys) and torch.sort of the same real-slot keys K6 sorts; the
+    launches of one K6 call and of the old sort step by torch.profiler.
     Returns ({"seed_probe": ..., "seed_build": ...} of (ms, plain ms,
-    library ms, work, max abs err), the reads outside the contract and
-    the reads over the largest bucket)."""
+    library ms, work, max abs err, extra keys), the reads outside the
+    contract and the reads over the largest bucket)."""
     from mm2tpu_torch import cli
     from mm2tpu_torch.mapping import pipeline as pl
-    from mm2tpu_torch.ops import chain_v3
     from mm2tpu_torch.ops import seed_device as sd
     t0 = time.perf_counter()
     io, mo = cli.set_opt(None)
@@ -1194,8 +1272,8 @@ def phase_seed_kernels(tmp, ref, reads, clock):
     mi = next(cli.index_parts(ref, io, n_threads=3))
     cli.mapopt_update(mo, mi)
     index = sd.prepare_index_device(mi, DEVICE)
-    keys, start, cnt, pos = (index[k] for k in ("keys", "start", "cnt",
-                                                "pos"))
+    keys, start, cnt, pos, table = (index[k] for k in (
+        "keys", "start", "cnt", "pos", "table"))
     torch.cuda.synchronize()
     ctxs, names, outside = {}, {}, []
     for i, (name, seq) in enumerate(read_fasta(reads)):
@@ -1209,19 +1287,23 @@ def phase_seed_kernels(tmp, ref, reads, clock):
     idxs = sorted(ctxs)
     mid_occ = int(mo.mid_occ)
     prep = {i: sd.split_query_minimizers(ctxs[i].mv) for i in idxs}
-    say("5s", "index on the card: %d keys, %d positions (%.1f MB); %d reads "
-        "in the contract, %d outside it; mid_occ %d; %.3f s" % (
-            keys.numel(), pos.numel(),
-            sum(t.numel() * t.element_size() for t in index.values()) / 1e6,
-            len(idxs), len(outside), mid_occ, time.perf_counter() - t0))
-    max_err, n_q, cnts = 0, 0, {}
+    on_card = sum(t.numel() * t.element_size() for t in (
+        table.keys, table.sc, table.lut, pos))
+    say("5s", "index on the card: %d keys, %d positions, a bucket table of "
+        "2^%d buckets (shift %d; %.1f MB in all); sort key widths: rid %d "
+        "bits, rpos %d bits; %d reads in the contract, %d outside it; "
+        "mid_occ %d; %.3f s" % (
+            keys.numel(), pos.numel(), table.bits, table.shift,
+            on_card / 1e6, index["rid_bits"], index["pos_bits"], len(idxs),
+            len(outside), mid_occ, time.perf_counter() - t0))
+    max_err, n_q, cnts, probe_qs = 0, 0, {}, []
     probes = pl._probe_chunks(ctxs, idxs)
     for M, chunk, B in probes:
         q = np.full((B, M), sd.PAD_Q, np.int64)
         for r, i in enumerate(chunk):
             q[r, :len(prep[i][0])] = prep[i][0]
         q = torch.from_numpy(q).to(DEVICE)
-        got = sd.probe_counts(keys, start, cnt, q)
+        got = sd.probe_index(index, q)
         max_err = max(max_err, tensors_equal(
             "K5 != plain at (%d, %d)" % (B, M), got,
             sd.probe_counts_reference(keys, start, cnt, q)))
@@ -1229,6 +1311,7 @@ def phase_seed_kernels(tmp, ref, reads, clock):
         for r, i in enumerate(chunk):
             cnts[i] = c[r, :len(ctxs[i].mv)]
         n_q += B * M
+        probe_qs.append(q)
     say("5s", "K5 == plain on the %d count probes' %d queries (start and "
         "cnt)" % (len(probes), n_q))
     meta = {i: pl._seed_meta(prep[i], cnts[i], mid_occ) for i in idxs}
@@ -1239,11 +1322,12 @@ def phase_seed_kernels(tmp, ref, reads, clock):
             with_k1.add(k)
             budget -= plan[k][0][1]
     iter_cap = min(1024, mo.max_chain_iter)
-    anchors = 0
+    anchors = padded = 0
     for k, ((M, N, gap_ref, gap_qry), chunk, B) in enumerate(plan):
         planes = [torch.from_numpy(a).to(DEVICE)
                   for a in pl._seed_planes(prep, ctxs, meta, chunk, B, M)]
         what = "dispatch %d, (B, M, N) = (%d, %d, %d)" % (k, B, M, N)
+        totals = [meta[i][2] for i in chunk]
         if k in with_k1:
             kw = dict(N=N, mid_occ=mid_occ, max_dist_x=gap_ref,
                       max_dist_y=gap_qry, bw=mo.bw, iter_cap=iter_cap,
@@ -1258,52 +1342,122 @@ def phase_seed_kernels(tmp, ref, reads, clock):
             n = got[5]
         max_err = max(max_err, tensors_equal("K6 != plain, " + what, got,
                                              want))
-        totals = [meta[i][2] for i in chunk]
         if n[:len(chunk), 0].tolist() != totals or int(n[len(chunk):].sum()):
             raise AssertionError("%s: n %s, the counts give %s" % (
                 what, n[:, 0].tolist(), totals))
-        anchors += sum(totals)
-    say("5s", "K6 + sort == plain on all %d fused dispatches (%d anchors: "
-        "sorted anchors and n), and K1 == plain on the anchors of the %d "
-        "of smallest N (f, p; %d plain steps); %d reads over the largest "
-        "bucket" % (len(plan), anchors, len(with_k1),
-                    SEED_PLAIN_STEPS - budget, len(big)))
-    # timed at the largest dispatch
+        anchors += sum(min(t, N) for t in totals)
+        padded += B * N
+    say("5s", "K6 == plain on all %d fused dispatches (planes hi, lo, qi, "
+        "span, yhi and n), and K1 == plain on the anchors of the %d of "
+        "smallest N (f, p; %d plain steps); K6 sorted %d real slots (sum "
+        "n) of the dispatches' B x N = %d; %d reads over the largest "
+        "bucket" % (len(plan), len(with_k1), SEED_PLAIN_STEPS - budget,
+                    anchors, padded, len(big)))
+
+    # K5 timed on the largest count probe's queries and the largest
+    # dispatch's, beside torch.searchsorted on the same keys and queries
     (M, N, gap_ref, gap_qry), chunk, B = max(
         plan, key=lambda job: (job[0][1], job[0][0], len(job[1])))
     q, qpos, qyhi, qlen, _ = (torch.from_numpy(a).to(DEVICE) for a in
                               pl._seed_planes(prep, ctxs, meta, chunk, B, M))
-    k5_ms, (s, c) = cuda_ms(lambda: sd.probe_counts(keys, start, cnt, q), 20)
+    largest_probe = max(probe_qs, key=lambda t: t.numel())
+    k5 = {}
+    for tag, qq in (("count probe", largest_probe), ("dispatch", q)):
+        row = {}
+        for turn in range(2):   # in turns: K5, library, library, K5
+            order = ("k5", "lib") if turn == 0 else ("lib", "k5")
+            for who in order:
+                fn = (lambda qq=qq: sd.probe_index(index, qq)) \
+                    if who == "k5" else \
+                    (lambda qq=qq: torch.searchsorted(keys, qq))
+                dev_ms, out = graph_ms(fn)
+                call_ms, _ = cuda_ms(fn, 20)
+                row.setdefault(who, []).append((dev_ms, call_ms))
+                if who == "k5":
+                    hits = int((out[1] > 0).sum())
+        k5[tag] = ({w: tuple(float(np.median([t[j] for t in v]))
+                            for j in (0, 1))
+                    for w, v in row.items()}, qq.numel(), hits)
+        (kd, kc), (ld, lc) = k5[tag][0]["k5"], k5[tag][0]["lib"]
+        say("5s", "K5 on the %s's %d queries (%s, %d hits): card time "
+            "%.4f ms (CUDA graph), call time %.4f ms; torch.searchsorted "
+            "card %.4f ms, call %.4f ms (each the median of two turns)" % (
+                tag, qq.numel(), "x".join(map(str, qq.shape)),
+                k5[tag][2], kd, kc, ld, lc))
     k5_plain, _ = cuda_ms(
         lambda: sd.probe_counts_reference(keys, start, cnt, q), 3)
-    k5_lib, _ = cuda_ms(lambda: torch.searchsorted(keys, q), 20)
-    build = functools.partial(sd.build_anchors, s, c, qpos, qyhi, qlen, pos,
-                              N=N, mid_occ=mid_occ)
-    k6_ms, (key, y, n) = cuda_ms(build, 20)
-    k6_plain, _ = cuda_ms(functools.partial(
-        sd.build_anchors_reference, s, c, qpos, qyhi, qlen, pos, N=N,
-        mid_occ=mid_occ), 3)
-    sort_ms, _ = cuda_ms(lambda: sd.sort_anchors(key, y, n), 20)
-    lib_sort, _ = cuda_ms(lambda: torch.sort(key, dim=1, stable=True), 20)
+    # bytes in and out once: the queries and their (start, cnt), and each
+    # hit's key, start and cnt
+    Q, hits = k5["dispatch"][1], k5["dispatch"][2]
+    k5_work = (16 * Q + 16 * hits, 0)
+
+    # K6 at the largest dispatch, beside the old sort step and torch.sort
+    slots = sum(min(meta[i][2], N) for i in chunk)
+    pipe = functools.partial(sd.seed_anchors, index, q, qpos, qyhi, qlen,
+                             N=N, mid_occ=mid_occ)
+    s_ref, c_ref = sd.probe_counts_reference(keys, start, cnt, q)
+    key, y, n = sd.build_anchors_reference(s_ref, c_ref, qpos, qyhi, qlen,
+                                           pos, N=N, mid_occ=mid_occ)
+    flat = packed_sort_keys(key, n, index)
     total = int(n.sum())
-    steps = max(1, int(np.ceil(np.log2(keys.numel() + 1))))
-    # K5's bytes: each query read and its (start, cnt) written, and what
-    # its search must read at least: the key it ends on and, on a hit,
-    # that key's start and cnt (not the whole index: a search reads
-    # log2(keys) of them)
-    k5_work = (24 * q.numel() + 8 * int((c > 0).sum()),
-               OPS_PER_PROBE_STEP * steps * q.numel())
-    k6_work = (16 * B * M + 4 * B + 8 * total + 16 * B * N + 4 * B,
-               OPS_PER_SLOT * total + OPS_PER_MINIMIZER * B * M)
-    say("5s", "timed at the largest dispatch (B, M, N) = (%d, %d, %d), %d "
-        "anchors: K5 %.3f ms (plain %.3f, torch.searchsorted %.3f; bound "
-        "%.4f ms, %s), K6 %.3f ms (plain %.3f; bound %.4f ms, %s), sort "
-        "step %.3f ms (torch.sort %.3f ms)" % (
-            B, M, N, total, k5_ms, k5_plain, k5_lib,
-            *bound(*k5_work, clock), k6_ms, k6_plain,
-            *bound(*k6_work, clock), sort_ms, lib_sort))
-    return ({"seed_probe": (k5_ms, k5_plain, k5_lib, k5_work, max_err),
-             "seed_build": (k6_ms, k6_plain, lib_sort, k6_work, max_err)},
+    if flat.numel() != slots or total != slots:
+        raise AssertionError("K6 timing: %d real slots, the counts give %d"
+                             % (flat.numel(), slots))
+    old_step = functools.partial(sd.sort_anchors, key, y, n)
+    lib_sort = functools.partial(torch.sort, flat, stable=True)
+    times = {}
+    for who in ("k6", "old", "lib", "lib", "old", "k6"):
+        fn = {"k6": pipe, "old": old_step, "lib": lib_sort}[who]
+        dev_ms, _ = graph_ms(fn)
+        call_ms, _ = cuda_ms(fn, 20)
+        times.setdefault(who, []).append((dev_ms, call_ms))
+    med = {w: tuple(float(np.median([t[j] for t in v])) for j in (0, 1))
+           for w, v in times.items()}
+    k6_plain, _ = cuda_ms(functools.partial(
+        sd.seed_anchors_reference, index, q, qpos, qyhi, qlen, N=N,
+        mid_occ=mid_occ), 3)
+    k6_launches = card_launches(pipe)
+    old_launches = card_launches(old_step)
+    # the bytes K6 must move: the minimizer planes in (q, qpos, qyhi) and
+    # qlen, 8 B of pos an anchor, the planes out (hi, lo, qi, span int32,
+    # yhi int16: 18 B a slot) and n
+    k6_work = (16 * B * M + 4 * B + 8 * total + 18 * B * N + 4 * B, 0)
+    say("5s", "K6 at the largest dispatch (B, M, N) = (%d, %d, %d): sorted "
+        "%d real slots (sum n) of B x N = %d; card time %.4f ms, call "
+        "time %.4f ms (plain %.3f ms; bound %.4f ms, %s); the old sort "
+        "step (sort_anchors on the B x N keys) card %.4f ms, call %.4f "
+        "ms; torch.sort of the %d real-slot keys card %.4f ms, call %.4f "
+        "ms (medians of two turns)" % (
+            B, M, N, total, B * N, *med["k6"], k6_plain,
+            *bound(*k6_work, clock), *med["old"], total, *med["lib"]))
+    for what, (nl, ms, kinds) in (("K6", k6_launches),
+                                  ("the old sort step", old_launches)):
+        say("5s", "launches of one call of %s (torch.profiler): %s%s" % (
+            what, "not measured" if nl is None else
+            "%d, %.4f ms on the card" % (nl, ms), "".join(
+                "; %s x%d %.4f ms" % (k, c, t)
+                for k, (c, t) in sorted(kinds.items(),
+                                        key=lambda kv: -kv[1][1]))))
+    kd, kc = k5["dispatch"][0]["k5"]
+    return ({"seed_probe": (kd, k5_plain, k5["dispatch"][0]["lib"][0],
+                            k5_work, max_err,
+                            {"call_ms": kc,
+                             "library_call_ms": k5["dispatch"][0]["lib"][1],
+                             "count_probe": {
+                                 "queries": k5["count probe"][1],
+                                 "ms": k5["count probe"][0]["k5"][0],
+                                 "call_ms": k5["count probe"][0]["k5"][1],
+                                 "library_ms":
+                                     k5["count probe"][0]["lib"][0]}}),
+             "seed_build": (med["k6"][0], k6_plain, med["lib"][0], k6_work,
+                            max_err,
+                            {"call_ms": med["k6"][1],
+                             "library_call_ms": med["lib"][1],
+                             "old_sort_step_ms": med["old"][0],
+                             "sorted_slots": total, "slots": B * N,
+                             "card_launches": k6_launches[0],
+                             "card_kernels": k6_launches[2],
+                             "old_sort_step_launches": old_launches[0]})},
             outside, [names[i] for i in big])
 
 
@@ -1833,8 +1987,7 @@ def phase_mesh_kernels(ref, reads, clock):
         q[r, :len(x)] = x
     index = sd.prepare_index_device(mi, DEVICE)
     qt = torch.from_numpy(q).to(DEVICE)
-    rep_ms, want = median_ms(lambda: sd.probe_counts(
-        index["keys"], index["start"], index["cnt"], qt))
+    rep_ms, want = median_ms(lambda: sd.probe_index(index, qt))
     want = tuple(t.cpu() for t in want)
     Q = q.size
     meshes = [pm.make_mesh(D, devices=[MESH_ONE_CARD[0]] * D)
@@ -1850,11 +2003,11 @@ def phase_mesh_kernels(ref, reads, clock):
         ms, got = median_ms(lambda: step(shards, q).result())
         tensors_equal("sharded probe at D = %d != the replicated K5" % D,
                       got, want)
-        steps = max(1, int(np.ceil(np.log2(len(keys) // D + 1))))
-        # each shard reads every query and writes its (start, cnt); the
-        # all-gather and the reduce-scatter move (D - 1) x 8 B a query each
-        work = (D * 16 * Q + (D - 1) * 16 * Q,
-                D * OPS_PER_PROBE_STEP * steps * Q)
+        # each shard reads every query and writes its (start, cnt), each
+        # hit reads its key, start and cnt once; the all-gather and the
+        # reduce-scatter move (D - 1) x 8 B a query each
+        hits = int((want[1] > 0).sum())
+        work = (D * 16 * Q + 16 * hits + (D - 1) * 16 * Q, 0)
         say("5m", "(iii) sharded probe, D = %d shards (%s), %d queries "
             "(%d reads' minimizers, %d hits): (start, cnt) == the replicated "
             "K5's; %.3f ms a step (upload of the queries, all-gather, D K5 "
@@ -2694,12 +2847,14 @@ def main(argv=None) -> int:
                 (("seed_probe", "mm2tpu/parallel/mesh.py:137"),
                  ("seed_build", "mm2tpu/ops/seed_device.py:73")),
                 seed_launches):
-            ms, plain_ms, lib_ms, work, err = seed[name]
+            ms, plain_ms, lib_ms, work, err, extra = seed[name]
             line = kernel_line(name, "mm2tpu_torch/csrc/seed.cu", replaces,
                                n, err, (ms, plain_ms), work, clock)
-            # torch.searchsorted (K5's search); for K6, torch.sort of its
-            # output: the sort step that follows the build
+            # ms: the card's own time (CUDA graph replay); library_ms:
+            # torch.searchsorted on K5's keys and queries, and for K6
+            # torch.sort of the real-slot keys it sorts, timed alike
             line["library_ms"] = lib_ms
+            line.update(extra)
             lines.append(line)
     if mesh:
         for (name, source, replaces), n in zip(

@@ -461,7 +461,9 @@ def _seed_device_round(mi: MMIndex, opt: MapOptions, ctxs: dict,
     ctx.sr and returns {i: (a, u)} backtrack results; a fragment whose
     anchor total needs a bucket over 131072 keeps ctx.sr None (the
     caller seeds it on the host). Dispatches run two deep: chunk k+1 is
-    packed and launched while chunk k's results come back."""
+    packed and launched while chunk k's results come back. `--profile`'s
+    seed.launches counts each K5 launch (a count probe) and each K6
+    launch (a fused dispatch's chain of seeding kernels) as one."""
     fn = sd.seed_chain if seed_fn is None else seed_fn
     timed = dev.type == "cuda" and profiling.enabled
     mid_occ = int(opt.mid_occ)
@@ -482,8 +484,7 @@ def _seed_device_round(mi: MMIndex, opt: MapOptions, ctxs: dict,
             (qt,) = planes_to_torch(q, dev)
             marks = _Marks(timed)
             marks()
-            _, c = sd.probe_counts(index["keys"], index["start"],
-                                   index["cnt"], qt)
+            _, c = sd.probe_index(index, qt)
             marks()
             jobs.append((chunk, gather((dev,), [(c,)]), marks))
             if profiling.enabled:
@@ -520,7 +521,7 @@ def _seed_device_round(mi: MMIndex, opt: MapOptions, ctxs: dict,
         with profiling.stage("seed.device_chain"):
             if profiling.enabled:
                 totals = [meta[i][2] for i in chunk]
-                profiling.count("seed.launches", 2)
+                profiling.count("seed.launches")
                 profiling.count("seed.anchors", sum(totals))
                 profiling.count("seed.bytes_up", sum(a.nbytes
                                                      for a in arrays))

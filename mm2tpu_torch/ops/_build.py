@@ -140,8 +140,10 @@ SIGNATURES = {
                                                  _i32, _i32, _vp],
     "mm2tpu_ksw2_extd2": [_vp] * 10 + [_i32] * 20 + [_vp],
     "mm2tpu_ksw2_exts2": [_vp] * 12 + [_i32] * 17 + [_vp],
-    "mm2tpu_seed_probe": [_vp] * 3 + [_i32, _vp, _i32] + [_vp] * 3,
-    "mm2tpu_seed_build": [_vp] * 9 + [_i32] * 4 + [_vp],
+    "mm2tpu_seed_probe": [_vp] * 3 + [_i32] * 2 + [_vp, _i32] + [_vp] * 3,
+    "mm2tpu_seed_workspace": [_i32] * 5 + [_vp] * 2,
+    "mm2tpu_seed_anchors": [_vp] * 3 + [_i32] * 2 + [_vp] * 5 + [_i32] * 6
+    + [_vp, ctypes.c_longlong] + [_vp] * 7,
 }
 
 

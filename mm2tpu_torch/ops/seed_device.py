@@ -1,6 +1,6 @@
-"""Device seeding: the index probe (K5), the anchor build and sort (K6's
-front half) and the chaining of the built anchors on K1, on a torch
-device.
+"""Device seeding: the index probe (K5), the anchor pipeline (K6: probe,
+count, expand and stable sort into K1's planes) and the chaining of the
+anchors on K1, on a torch device.
 
 Counterpart of `mm2tpu/ops/seed_device.py` (`prepare_index_device`,
 `probe_counts`, `seed_chain_device`, `anchors_from_device`,
@@ -9,7 +9,7 @@ Counterpart of `mm2tpu/ops/seed_device.py` (`prepare_index_device`,
 read and ships only its minimizers; the device probes the CSR index it
 holds, expands the hits into anchors, drops the minimizers at or over
 `mid_occ`, sorts the anchors stably by x and chains them, with nothing
-uploaded between the build and the chaining. The host reads back the
+uploaded between the seeding and the chaining. The host reads back the
 anchors, f and the relative p, 20 B an anchor.
 
 Coverage (the JAX package's; callers seed the rest on the host):
@@ -19,27 +19,33 @@ the host; SELF never fires without the qname rules.
 
 The JAX package carries every 64-bit value as a pair of int32 (the TPU
 has no int64). Here they are int64: minimizer hashes are below 2^56, so
-int64 orders them as uint64 does, and the sort key is x with bit 63
-flipped, so that signed order is the unsigned order of x. The built
-anchors come out as K1's planes, with `pack_tasks16`'s pad past each
+int64 orders them as uint64 does, and the plain version's sort key is x
+with bit 63 flipped, so that signed order is the unsigned order of x.
+The anchors come out as K1's planes, with `pack_tasks16`'s pad past each
 row's n, so the chaining sees what the host-seeded path packs.
 
-Two wrappers hold a kernel each, in `csrc/seed.cu`:
+The index on the card (`device_index`, `prepare_index_device`) carries a
+bucket table (`bucket_table`, the host index's native LUT): 2^bits + 1
+int32 offsets of the keys by their top bits, and (start, cnt) interleaved
+as one (n_keys, 2) int32 plane. Two wrappers launch `csrc/seed.cu`:
 
-- `probe_counts` (K5, `mm2tpu_seed_probe`): (start, cnt) of each query;
-- `build_anchors` (K6, `mm2tpu_seed_build`): the kept hits expanded into
-  unsorted sort keys and y words, pads past each row's total, and n.
+- `probe_index` (K5, `mm2tpu_seed_probe`): (start, cnt) of each query
+  through the table;
+- `seed_anchors` (K6, `mm2tpu_seed_anchors`): probe, count, expand and
+  sort of a (B, M) bucket into K1's planes and n, in one chain of
+  launches (see the source).
 
-A CPU tensor goes to the plain version (`probe_counts_reference`,
-`build_anchors_reference`); a CUDA tensor launches the kernel or raises.
-`launches` and `reference_calls` count, per kernel ("probe", "build"),
-the kernel launches and the runs of the plain version. The sort is
-`torch.sort(..., stable=True)` on one int64 key, as the JAX package
-leaves it to XLA's sort.
+A CPU tensor goes to the plain version (`probe_counts_reference`;
+`seed_anchors_reference` = `probe_counts_reference`,
+`build_anchors_reference` and `sort_anchors`, which the card's path never
+runs); a CUDA tensor launches the kernels or raises. `launches` and
+`reference_calls` count, per kernel ("probe", "build"), the launches (a
+K6 launch is its whole chain) and the runs of the plain version.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -49,8 +55,9 @@ from .chain_packed import p_rel
 
 INT64_MIN = -(1 << 63)
 PAD_Q = -1                 # a padded query: never equals a key (>= 0)
-PAD_KEY = (1 << 63) - 1    # a padded slot's sort key: after every anchor
+PAD_KEY = (1 << 63) - 1    # a padded slot's sort key, or a padded key
 PAD_HI = -0x7FFFFF0        # pack_tasks16's never-matching hi sentinel
+LUT_MAX_BITS = 22          # the bucket table's size, as the native LUT's
 
 launches = {"probe": 0, "build": 0}
 reference_calls = {"probe": 0, "build": 0}
@@ -62,20 +69,75 @@ def reset_counts() -> None:
             d[k] = 0
 
 
+class BucketTable(NamedTuple):
+    """The index's bucket table on a device: `keys` (n,) int64, `sc` (n,
+    2) int32 (start, cnt), `lut` (2^bits + 1,) int32 with bucket k's keys
+    at lut[k] .. lut[k + 1], bucket = min(key >> shift, 2^bits - 1)."""
+    keys: torch.Tensor
+    sc: torch.Tensor
+    lut: torch.Tensor
+    bits: int
+    shift: int
+
+
+def bucket_table(keys, start, cnt) -> BucketTable:
+    """The bucket table of sorted int64 `keys` (a shard's may end in
+    `PAD_KEY`s) and their start/cnt, on the keys' device, by the integer
+    ops of `index/build.py::MMIndex._native_lut` (bincount and cumsum):
+    bits = min(22, bit length of the real key count), shift from the last
+    real key's bit length. Equal to that LUT on an unpadded index."""
+    keys = keys.to(torch.int64).contiguous()
+    n = keys.shape[0]
+    if n >= 1 << 31:
+        raise ValueError("bucket_table: need fewer than 2^31 keys, got %d"
+                         % n)
+    real = n - int((keys == PAD_KEY).sum()) if n else 0
+    bits = min(LUT_MAX_BITS, max(1, real.bit_length()))
+    top = int(keys[real - 1]) if real else 0
+    shift = max(0, top.bit_length() - bits)
+    nb = 1 << bits
+    lut = torch.zeros(nb + 1, dtype=torch.int64, device=keys.device)
+    lut[1:] = torch.bincount((keys >> shift).clamp(max=nb - 1),
+                             minlength=nb).cumsum(0)
+    sc = torch.stack([start.to(torch.int32), cnt.to(torch.int32)],
+                     1).contiguous()
+    return BucketTable(keys, sc, lut.to(torch.int32), bits, shift)
+
+
+def device_index(keys, start, cnt, device, pos=None) -> dict:
+    """The CSR index (host arrays or tensors) on `device`: `keys` int64,
+    `start`/`cnt` int32 (the columns of the table's sc plane), `table`
+    (`bucket_table`) and, given `pos` (rid<<32 | rpos<<1 | strand),
+    `pos` int64 with `rid_bits`/`pos_bits`, the bits of its largest rid
+    and rpos (the width of K6's sort key)."""
+    dev = torch.device(device)
+
+    def to(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a) if isinstance(
+            a, np.ndarray) else a).to(device=dev, dtype=dtype)
+
+    table = bucket_table(to(keys, torch.int64), to(start, torch.int32),
+                         to(cnt, torch.int32))
+    out = dict(keys=table.keys, start=table.sc[:, 0], cnt=table.sc[:, 1],
+               table=table)
+    if pos is not None:
+        p = to(pos, torch.int64).contiguous()
+        out.update(pos=p, rid_bits=int((p >> 32).max()).bit_length()
+                   if p.numel() else 0,
+                   pos_bits=int(((p & 0xFFFFFFFF) >> 1).max()).bit_length()
+                   if p.numel() else 0)
+    return out
+
+
 def prepare_index_device(mi, device) -> dict:
-    """The CSR index on `device` (cached on `mi` per device): `keys` int64
-    (the sorted minimizer hashes), `start`/`cnt` int32 and `pos` int64
-    (rid<<32 | rpos<<1 | strand)."""
+    """`device_index` of the host index `mi` with its positions (cached
+    on `mi` per device)."""
     dev = torch.device(device)
     cache = mi.__dict__.setdefault("_torch_dev_idx", {})
     key = str(dev)
     if key not in cache:
-        arrays = dict(keys=mi.keys.astype(np.int64),
-                      start=mi.start.astype(np.int32),
-                      cnt=mi.cnt.astype(np.int32),
-                      pos=mi.pos.astype(np.int64))
-        cache[key] = {k: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                      for k, a in arrays.items()}
+        cache[key] = device_index(mi.keys.astype(np.int64), mi.start,
+                                  mi.cnt, dev, pos=mi.pos.astype(np.int64))
     return cache[key]
 
 
@@ -132,43 +194,72 @@ def _check(name, t, dtype, shape, dev):
                                           tuple(t.shape), t.device))
 
 
-def probe_counts(keys, start, cnt, q):
-    """(start, cnt) of each query minimizer hash in `q` (int64, any
-    shape), int32 of q's shape, cnt = 0 on a miss or a pad (`PAD_Q`).
-    CPU tensors run the plain version; CUDA tensors launch `csrc/seed.cu`'s
-    `mm2tpu_seed_probe` on the current stream."""
-    if q.device.type == "cpu":
-        return probe_counts_reference(keys, start, cnt, q)
-    if q.device.type != "cuda":
-        raise ValueError("probe_counts: unsupported device %s" % q.device)
-    dev = q.device
-    nk = keys.shape[0]
-    _check("keys", keys, torch.int64, (nk,), dev)
-    _check("start", start, torch.int32, (nk,), dev)
-    _check("cnt", cnt, torch.int32, (nk,), dev)
-    _check("q", q, torch.int64, tuple(q.shape), dev)
-    if q.numel() == 0 or q.numel() >= 1 << 31 or nk >= 1 << 31:
-        raise ValueError("probe_counts: need 0 < queries < 2^31 and keys < "
-                         "2^31, got %d and %d" % (q.numel(), nk))
-    from . import _build
-    lib = _build.load()
-    s = torch.empty(q.shape, dtype=torch.int32, device=dev)
-    c = torch.empty(q.shape, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mm2tpu_seed_probe(keys.data_ptr(), start.data_ptr(),
-                                    cnt.data_ptr(), nk, q.data_ptr(),
-                                    q.numel(), s.data_ptr(), c.data_ptr(),
-                                    stream)
+_lib = None
+
+
+def _kernels():
+    global _lib
+    if _lib is None:
+        from . import _build
+        _lib = _build.load()
+    return _lib
+
+
+def _launch(dev, fn, *args):
+    """fn(*args, stream) on `dev`'s current stream, entering the device
+    only where it is not the current one already; raises on an error."""
+    if dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return _launch(dev, fn, *args)
+    err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError("seed_probe kernel launch failed: cudaError %d"
-                           % err)
+        raise RuntimeError("%s launch failed: cudaError %d" % (fn.__name__,
+                                                               err))
+
+
+def _check_table(table, dev):
+    """`bucket_table` makes a table's planes contiguous and of their
+    dtypes: a launch checks only that it is one, on `dev`."""
+    if not isinstance(table, BucketTable):
+        raise ValueError("the card's probe needs the index's bucket table "
+                         "(`bucket_table`, `device_index`), got %r"
+                         % type(table).__name__)
+    if table.keys.device != dev:
+        raise ValueError("the bucket table is on %s, the queries on %s"
+                         % (table.keys.device, dev))
+
+
+def probe_index(index, q):
+    """(start, cnt) of each query minimizer hash in `q` (int64, any
+    shape) in a `device_index`, int32 of q's shape, cnt = 0 on a miss or
+    a pad (`PAD_Q`). CPU tensors run the plain version on the index's
+    keys, start and cnt; CUDA tensors launch `csrc/seed.cu`'s
+    `mm2tpu_seed_probe` on the current stream through its bucket
+    table."""
+    if q.device.type == "cpu":
+        return probe_counts_reference(index["keys"], index["start"],
+                                      index["cnt"], q)
+    if q.device.type != "cuda":
+        raise ValueError("probe_index: unsupported device %s" % q.device)
+    dev = q.device
+    table = index["table"]
+    _check_table(table, dev)
+    _check("q", q, torch.int64, tuple(q.shape), dev)
+    nq = q.numel()
+    if nq == 0 or nq >= 1 << 30:
+        raise ValueError("probe_index: need 0 < queries < 2^30, got %d"
+                         % nq)
+    out = torch.empty((2,) + tuple(q.shape), dtype=torch.int32, device=dev)
+    ptr = out.data_ptr()
+    _launch(dev, _kernels().mm2tpu_seed_probe, table.keys.data_ptr(),
+            table.lut.data_ptr(), table.sc.data_ptr(), table.bits,
+            table.shift, q.data_ptr(), nq, ptr, ptr + 4 * nq)
     with count_lock:
         launches["probe"] += 1
-    return s, c
+    return out.unbind(0)
 
 
-# ---- K6: the anchor build ----
+# ---- K6: the anchor pipeline (its plain version, then the kernels) ----
 
 def build_anchors_reference(start, cnt, qpos, qyhi, qlen, pos, *, N: int,
                             mid_occ: int):
@@ -217,48 +308,6 @@ def build_anchors_reference(start, cnt, qpos, qyhi, qlen, pos, *, N: int,
     return key, y, total.to(torch.int32)
 
 
-def build_anchors(start, cnt, qpos, qyhi, qlen, pos, *, N: int,
-                  mid_occ: int):
-    """K6's anchor build, as `build_anchors_reference`. CPU tensors run the
-    plain version; CUDA tensors launch `csrc/seed.cu`'s `mm2tpu_seed_build`
-    on the current stream (one block a row)."""
-    if cnt.device.type == "cpu":
-        return build_anchors_reference(start, cnt, qpos, qyhi, qlen, pos,
-                                       N=N, mid_occ=mid_occ)
-    if cnt.device.type != "cuda":
-        raise ValueError("build_anchors: unsupported device %s" % cnt.device)
-    dev = cnt.device
-    if cnt.dim() != 2:
-        raise ValueError("cnt must be (B, M), got %s" % (tuple(cnt.shape),))
-    B, M = cnt.shape
-    for name, t in (("start", start), ("cnt", cnt), ("qpos", qpos),
-                    ("qyhi", qyhi)):
-        _check(name, t, torch.int32, (B, M), dev)
-    _check("qlen", qlen, torch.int32, (B,), dev)
-    _check("pos", pos, torch.int64, (pos.shape[0],), dev)
-    if B < 1 or M < 1 or N < 1 or B * max(M, N) >= 1 << 31:
-        raise ValueError("build_anchors: bad shape B=%d M=%d N=%d" % (B, M,
-                                                                     N))
-    from . import _build
-    lib = _build.load()
-    key = torch.empty((B, N), dtype=torch.int64, device=dev)
-    y = torch.empty((B, N), dtype=torch.int64, device=dev)
-    n = torch.empty((B,), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mm2tpu_seed_build(
-            start.data_ptr(), cnt.data_ptr(), qpos.data_ptr(),
-            qyhi.data_ptr(), qlen.data_ptr(), pos.data_ptr(),
-            key.data_ptr(), y.data_ptr(), n.data_ptr(), B, M, N,
-            int(mid_occ), stream)
-    if err != 0:
-        raise RuntimeError("seed_build kernel launch failed: cudaError %d"
-                           % err)
-    with count_lock:
-        launches["build"] += 1
-    return key, y, n
-
-
 def sort_anchors(key, y, n):
     """Sort each row stably by `key` (pads, `PAD_KEY`, last; equal x keep
     slot order, the order of the host's stable radix sort) and split the
@@ -292,15 +341,68 @@ def seed_anchors_reference(index, q, qpos, qyhi, qlen, *, N: int,
     return sort_anchors(key, y, n)
 
 
+_workspaces: dict = {}
+
+
+def _workspace(B, M, N, rid_bits, pos_bits) -> int:
+    """Scratch bytes of K6 at these sizes (`mm2tpu_seed_workspace`)."""
+    key = (B, M, N, rid_bits, pos_bits)
+    if key not in _workspaces:
+        nbytes, passes = ctypes.c_longlong(), ctypes.c_int()
+        err = _kernels().mm2tpu_seed_workspace(
+            B, M, N, rid_bits, pos_bits, ctypes.byref(nbytes),
+            ctypes.byref(passes))
+        if err != 0:
+            raise ValueError("seed_anchors: no workspace for B=%d M=%d N=%d "
+                             "rid_bits=%d pos_bits=%d (a sort key over 64 "
+                             "bits?)" % key)
+        _workspaces[key] = nbytes.value
+    return _workspaces[key]
+
+
 def seed_anchors(index, q, qpos, qyhi, qlen, *, N: int, mid_occ: int):
-    """The sorted anchors of a (B, M) bucket of reads: probe (K5), build
-    (K6), `sort_anchors`. `index` from `prepare_index_device`; q (B, M)
-    int64 hashes padded with `PAD_Q`; qpos, qyhi (B, M) int32; qlen (B,)
-    int32. Returns `sort_anchors`' hi, lo, qi, span, yhi, n."""
-    s, c = probe_counts(index["keys"], index["start"], index["cnt"], q)
-    key, y, n = build_anchors(s, c, qpos, qyhi, qlen, index["pos"], N=N,
-                              mid_occ=mid_occ)
-    return sort_anchors(key, y, n)
+    """The sorted anchors of a (B, M) bucket of reads as K1's planes.
+    `index` from `device_index` with pos (`prepare_index_device`); q (B,
+    M) int64 hashes padded with `PAD_Q`; qpos, qyhi (B, M) int32; qlen
+    (B,) int32. Returns `sort_anchors`' hi, lo, qi, span, yhi, n. CPU
+    tensors run the plain versions; CUDA tensors launch `csrc/seed.cu`'s
+    `mm2tpu_seed_anchors` (one chain of kernels) on the current stream."""
+    if q.device.type == "cpu":
+        return seed_anchors_reference(index, q, qpos, qyhi, qlen, N=N,
+                                      mid_occ=mid_occ)
+    if q.device.type != "cuda":
+        raise ValueError("seed_anchors: unsupported device %s" % q.device)
+    dev = q.device
+    if q.dim() != 2:
+        raise ValueError("q must be (B, M), got %s" % (tuple(q.shape),))
+    B, M = q.shape
+    if B < 1 or M < 1 or N < 1 or B * N >= 1 << 30 or B * M >= 1 << 31:
+        raise ValueError("seed_anchors: bad shape B=%d M=%d N=%d" % (B, M,
+                                                                    N))
+    _check("q", q, torch.int64, (B, M), dev)
+    _check("qpos", qpos, torch.int32, (B, M), dev)
+    _check("qyhi", qyhi, torch.int32, (B, M), dev)
+    _check("qlen", qlen, torch.int32, (B,), dev)
+    table, pos = index["table"], index["pos"]
+    _check_table(table, dev)
+    _check("pos", pos, torch.int64, (pos.shape[0],), dev)
+    rid_bits, pos_bits = index["rid_bits"], index["pos_bits"]
+    ws = torch.empty(_workspace(B, M, N, rid_bits, pos_bits),
+                     dtype=torch.uint8, device=dev)
+    planes = torch.empty((4, B, N), dtype=torch.int32, device=dev)
+    yhi = torch.empty((B, N), dtype=torch.int16, device=dev)
+    n = torch.empty((B, 1), dtype=torch.int32, device=dev)
+    hi, lo, qi, span = planes.unbind(0)
+    _launch(dev, _kernels().mm2tpu_seed_anchors, table.keys.data_ptr(),
+            table.lut.data_ptr(), table.sc.data_ptr(), table.bits,
+            table.shift, pos.data_ptr(), q.data_ptr(), qpos.data_ptr(),
+            qyhi.data_ptr(), qlen.data_ptr(), B, M, N, int(mid_occ),
+            rid_bits, pos_bits, ws.data_ptr(), ws.numel(), hi.data_ptr(),
+            lo.data_ptr(), qi.data_ptr(), span.data_ptr(), yhi.data_ptr(),
+            n.data_ptr())
+    with count_lock:
+        launches["build"] += 1
+    return hi, lo, qi, span, yhi, n
 
 
 def seed_chain(index, q, qpos, qyhi, qlen, avg, *, N: int, mid_occ: int,
@@ -318,9 +420,12 @@ def seed_chain(index, q, qpos, qyhi, qlen, avg, *, N: int, mid_occ: int,
     `plain=True` runs the plain versions on any device."""
     if mark is not None:
         mark()
-    seed = seed_anchors_reference if plain else seed_anchors
-    hi, lo, qi, span, yhi, n = seed(index, q, qpos, qyhi, qlen, N=N,
-                                    mid_occ=mid_occ)
+    if plain:
+        hi, lo, qi, span, yhi, n = seed_anchors_reference(
+            index, q, qpos, qyhi, qlen, N=N, mid_occ=mid_occ)
+    else:
+        hi, lo, qi, span, yhi, n = seed_anchors(
+            index, q, qpos, qyhi, qlen, N=N, mid_occ=mid_occ)
     if mark is not None:
         mark()
     chain = chain_v3.chain_scores_v3_reference if plain \
@@ -352,8 +457,9 @@ def anchors_from_device(hi, lo, yhi, ylo, n: int) -> np.ndarray:
     return a
 
 
-__all__ = ["PAD_Q", "anchors_from_device", "build_anchors",
-           "build_anchors_reference", "prepare_index_device", "probe_counts",
-           "probe_counts_reference", "reset_counts", "seed_anchors",
-           "seed_anchors_reference", "seed_chain", "seed_chain_plain",
-           "sort_anchors", "split_query_minimizers"]
+__all__ = ["BucketTable", "PAD_Q", "anchors_from_device", "bucket_table",
+           "build_anchors_reference", "device_index", "prepare_index_device",
+           "probe_counts_reference", "probe_index",
+           "reset_counts", "seed_anchors", "seed_anchors_reference",
+           "seed_chain", "seed_chain_plain", "sort_anchors",
+           "split_query_minimizers"]

@@ -245,18 +245,20 @@ def shard_index_arrays(keys: np.ndarray, start: np.ndarray,
 
 def shard_index(mesh: Mesh, keys, start, cnt):
     """The `shard_index_arrays` arrays on the mesh, once for many probes:
-    shard s's (keys, start, cnt), the s-th 1/D of each, on mesh[s]."""
-    return _split(mesh, (keys, start, cnt))
+    shard s's `seed_device.device_index` (keys, start, cnt and the bucket
+    table built from them) of the s-th 1/D of each, on mesh[s]."""
+    return [sd.device_index(*shard, shard[0].device)
+            for shard in _split(mesh, (keys, start, cnt))]
 
 
 def replicate_index(mesh: Mesh, keys, start, cnt):
     """The CSR index (keys int64, start and cnt int32, host arrays) on
-    every shard's device, one copy a distinct device: shard s's (keys,
-    start, cnt) on mesh[s]."""
+    every shard's device, one copy a distinct device: shard s's
+    `seed_device.device_index` on mesh[s]."""
     copies = {}
     for dev in mesh:
         if dev not in copies:
-            copies[dev] = planes_to_torch(keys, start, cnt, dev)
+            copies[dev] = sd.device_index(keys, start, cnt, dev)
     return [copies[dev] for dev in mesh]
 
 
@@ -265,7 +267,7 @@ def sharded_probe_step(mesh: Mesh):
     ranges on the mesh (`shard_index`) and host queries q (B, M) int64
     (`seed_device.PAD_Q` for a pad; B a multiple of the mesh size,
     row-sharded). The queries are all-gathered, each shard probes its
-    key range with K5 (`seed_device.probe_counts`), and the (start, cnt)
+    key range with K5 (`seed_device.probe_index`), and the (start, cnt)
     of each query, at most one shard's nonzero, are reduce-scattered back
     to the row shards: a `Gathered` of (start, cnt), (B, M) int32, 0 on a
     miss."""
@@ -275,7 +277,7 @@ def sharded_probe_step(mesh: Mesh):
         s_parts, c_parts = [], []
         for dev, shard, qq in zip(mesh, index, qs):
             with _on(dev):
-                hit_start, hit_cnt = sd.probe_counts(*shard, qq)
+                hit_start, hit_cnt = sd.probe_index(shard, qq)
             s_parts.append(hit_start)
             c_parts.append(hit_cnt)
             _count(dev)
@@ -312,7 +314,7 @@ def sharded_map_step(mesh: Mesh, *, max_dist_x: int, max_dist_y: int,
         parts = []
         for dev, ix, sl, sh in zip(mesh, index, slices, _split(mesh, rows)):
             with _on(dev):
-                out = list(sd.probe_counts(*ix, sh[0]))
+                out = list(sd.probe_index(ix, sh[0]))
                 out += chain_scores(*sh[1:8], **kw)
                 if ext:
                     from ..ops.ksw2_extd2 import extd2_traced

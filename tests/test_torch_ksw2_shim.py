@@ -6,7 +6,12 @@ in tests/test_torch_seed_device.py), with tests of its own:
 
 - `CUDA_SHIM` and `build_on_cpu`: a CPU stand-in for the CUDA that the
   kernels use, so that g++ builds a kernel's own source here and ctypes
-  binds its C entry point with the signature ops/_build.py gives it;
+  binds its C entry point with the signature ops/_build.py gives it
+  (barriers, warp shuffles, maxima and votes, `__syncwarp`, integer
+  atomics, a `__nanosleep` that yields, a card of SHIM_SMS
+  multiprocessors, with SHIM_SHUFFLE_BLOCKS blocks started in a seeded
+  random order, and with SHIM_RESIDENT_BLOCKS that many blocks run at
+  once, each with its own shared memory);
 - `one_torch_thread`: runs the plain versions beside it on one torch
   thread (their tensors are small, and a pool of threads slows tenfold
   when other processes load the cores);
@@ -20,6 +25,7 @@ import subprocess
 from pathlib import Path
 
 import numpy as np
+import pytest
 import torch
 
 from mm2tpu_torch.ops import _build
@@ -41,6 +47,7 @@ CUDA_SHIM = r"""
 #include <cstdlib>
 #include <cstring>
 #include <functional>
+#include <memory>
 #include <numeric>
 #include <random>
 #include <vector>
@@ -51,7 +58,15 @@ using std::min;
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __align__(x) alignas(x)
+// With SHIM_RESIDENT_BLOCKS = R, R blocks run at once, their fibers
+// interleaved: the static shared memory lies in one section, which the
+// scheduler swaps with the running block's own copy.
+#ifdef SHIM_RESIDENT_BLOCKS
+#define __shared__ static __attribute__((section("shim_shared")))
+extern "C" char __start_shim_shared[], __stop_shim_shared[];
+#else
 #define __shared__ static
+#endif
 struct dim3_ { int x = 0; };
 inline dim3_ threadIdx, blockIdx;  // the running fiber's
 struct alignas(8) int2 { int x, y; };
@@ -77,6 +92,20 @@ inline int __float2int_rz(float f) {  // saturating, NaN -> 0, as on the card
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+// a card of SHIM_SMS multiprocessors (few, so that a grid sized by them
+// is smaller than its work)
+#ifndef SHIM_SMS
+#define SHIM_SMS 3
+#endif
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+inline cudaError_t cudaGetDevice(int* d) {
+  *d = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = SHIM_SMS;
+  return cudaSuccess;
+}
 enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 template <class F> inline cudaError_t cudaFuncSetAttribute(F, int, int) {
   return cudaSuccess;
@@ -131,8 +160,34 @@ struct Barrier {
 };
 inline Barrier* g_bar;
 inline Barrier* g_warp_bar;
-inline int g_warp_buf[32][32];
+inline int (*g_warp_buf)[32];  // the running block's, as g_bar
+inline long long (*g_warp_buf64)[32];
 inline void __syncthreads() { g_bar->arrive_and_wait(); }
+// A vote, a warp barrier and the integer atomics of the seeding kernels.
+// A fiber runs alone until it waits, so an atomic is a plain update; the
+// first caller of a global counter is the first block to run.
+inline unsigned __ballot_sync(unsigned, int pred) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  g_warp_buf[w][lane] = pred != 0;
+  g_warp_bar[w].arrive_and_wait();
+  unsigned m = 0;
+  for (int k = 0; k < 32; ++k)
+    m |= static_cast<unsigned>(g_warp_buf[w][k] != 0) << k;
+  g_warp_bar[w].arrive_and_wait();
+  return m;
+}
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  g_warp_bar[threadIdx.x >> 5].arrive_and_wait();
+}
+inline int __popc(unsigned v) { return __builtin_popcount(v); }
+template <class T> inline T atomicAdd(T* p, T v) {
+  const T old = *p;
+  *p = old + v;
+  return old;
+}
+// a wait in a spin loop lets the other fibers run; a block whose fibers
+// all spin makes no progress, which the scheduler reports as a deadlock
+inline void __nanosleep(unsigned) { shim_yield(); }
 inline int __reduce_max_sync(unsigned, int v) {
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   g_warp_buf[w][lane] = v;
@@ -142,7 +197,6 @@ inline int __reduce_max_sync(unsigned, int v) {
   g_warp_bar[w].arrive_and_wait();
   return m;
 }
-inline long long g_warp_buf64[32][32];
 inline long long __shfl_xor_sync(unsigned, long long v, int mask) {
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   g_warp_buf64[w][lane] = v;
@@ -170,16 +224,21 @@ inline void shim_fiber() {
   (*g_fibers)[g_cur].done = true;
   _longjmp(g_sched_jb, 1);
 }
-inline void shim_launch(int nb, int nt, const std::function<void()>& f) {
-  g_body = &f;
-  std::mt19937 rng(12345);
-  for (int b = 0; b < nb; ++b) {
-    std::vector<Fiber> fibers(nt);
-    g_fibers = &fibers;
-    Barrier bar{nt};
-    g_bar = &bar;
-    std::vector<Barrier> warps(nt / 32, Barrier{32});
-    g_warp_bar = warps.data();
+// A block: its fibers, barriers, warp buffers and (resident mode) its
+// shared memory.
+struct Block {
+  int id, left;
+  std::vector<Fiber> fibers;
+  std::vector<int> order;  // the fibers' order, shuffled every pass
+  Barrier bar;
+  std::vector<Barrier> warps;
+  int warp_buf[32][32];
+  long long warp_buf64[32][32];
+  std::vector<char> smem;
+  Block(int b, int nt, size_t smem_bytes)
+      : id(b), left(nt), fibers(nt), order(nt), bar{nt},
+        warps(nt / 32, Barrier{32}), smem(smem_bytes) {
+    std::iota(order.begin(), order.end(), 0);
     for (auto& fb : fibers) {
       fb.stack.resize(1 << 17);
       getcontext(&fb.ctx);
@@ -188,30 +247,76 @@ inline void shim_launch(int nb, int nt, const std::function<void()>& f) {
       fb.ctx.uc_link = nullptr;
       makecontext(&fb.ctx, shim_fiber, 0);
     }
-    std::vector<int> order(nt);
-    std::iota(order.begin(), order.end(), 0);
-    std::vector<char> out((nt + 31) / 32);
-    for (int left = nt, idle = 0; left > 0;) {
-      const unsigned long before = g_progress;
-      std::shuffle(order.begin(), order.end(), rng);
+  }
+};
+// The blocks start in order, or, built with SHIM_SHUFFLE_BLOCKS, in a
+// seeded random order, as a card may start them (a block-order ticket
+// must not assume blockIdx order). One block runs at a time, or, built
+// with SHIM_RESIDENT_BLOCKS = R, R at once: each pass runs every
+// resident block's fibers once, the blocks in a random order, so that a
+// block can find another's work half done.
+inline void shim_launch(int nb, int nt, const std::function<void()>& f) {
+  g_body = &f;
+  std::mt19937 rng(12345);
+  std::vector<int> blocks(nb);
+  std::iota(blocks.begin(), blocks.end(), 0);
+#ifdef SHIM_SHUFFLE_BLOCKS
+  std::mt19937 block_rng(nb * 7919 + nt);
+  std::shuffle(blocks.begin(), blocks.end(), block_rng);
+#endif
+#ifdef SHIM_RESIDENT_BLOCKS
+  const size_t resident = SHIM_RESIDENT_BLOCKS;
+  char* const smem = __start_shim_shared;
+  const size_t smem_bytes = __stop_shim_shared - __start_shim_shared;
+#else
+  const size_t resident = 1;
+  char* const smem = nullptr;
+  const size_t smem_bytes = 0;
+#endif
+  std::vector<std::unique_ptr<Block>> live;
+  std::vector<int> turn;
+  std::vector<char> out((nt + 31) / 32);
+  size_t next = 0;
+  for (int idle = 0; next < blocks.size() || !live.empty();) {
+    while (live.size() < resident && next < blocks.size())
+      live.push_back(std::make_unique<Block>(blocks[next++], nt, smem_bytes));
+    const unsigned long before = g_progress;
+    turn.resize(live.size());
+    std::iota(turn.begin(), turn.end(), 0);
+    if (live.size() > 1) std::shuffle(turn.begin(), turn.end(), rng);
+    for (const int k : turn) {
+      Block& bk = *live[k];
+      g_fibers = &bk.fibers;
+      g_bar = &bk.bar;
+      g_warp_bar = bk.warps.data();
+      g_warp_buf = bk.warp_buf;
+      g_warp_buf64 = bk.warp_buf64;
+      if (smem_bytes) std::memcpy(smem, bk.smem.data(), smem_bytes);
+      std::shuffle(bk.order.begin(), bk.order.end(), rng);
       for (auto& o : out) o = static_cast<int>(rng() % 100) < kSitOut;
-      for (int t : order) {
-        if (fibers[t].done || out[t >> 5]) continue;
+      for (int t : bk.order) {
+        if (bk.fibers[t].done || out[t >> 5]) continue;
         g_cur = t;
         threadIdx.x = t;
-        blockIdx.x = b;
+        blockIdx.x = bk.id;
         if (!_setjmp(g_sched_jb)) {
-          if (fibers[t].started) _longjmp(fibers[t].jb, 1);
-          fibers[t].started = true;
-          swapcontext(&g_sched, &fibers[t].ctx);
+          if (bk.fibers[t].started) _longjmp(bk.fibers[t].jb, 1);
+          bk.fibers[t].started = true;
+          swapcontext(&g_sched, &bk.fibers[t].ctx);
         }
-        if (fibers[t].done) --left;
+        if (bk.fibers[t].done) --bk.left;
       }
-      idle = g_progress == before ? idle + 1 : 0;
-      if (left > 0 && idle >= 64) {
-        g_error = cudaErrorLaunchFailure;
-        return;
-      }
+      if (smem_bytes) std::memcpy(bk.smem.data(), smem, smem_bytes);
+    }
+    live.erase(std::remove_if(live.begin(), live.end(),
+                              [](const std::unique_ptr<Block>& bk) {
+                                return bk->left == 0;
+                              }),
+               live.end());
+    idle = g_progress == before ? idle + 1 : 0;
+    if (!live.empty() && idle >= 64) {
+      g_error = cudaErrorLaunchFailure;
+      return;
     }
   }
 }
@@ -384,6 +489,211 @@ def test_stand_in_runs_barriers_and_warp_max(tmp_path):
     assert lib.probe_launch(x.ctypes.data, out.ctypes.data, 1, 1, None) \
         == 719
     assert lib.probe_launch(x.ctypes.data, out.ctypes.data, 1, 0, None) == 0
+
+
+SHIM_WARP = r"""
+#include <cuda_runtime.h>
+namespace {
+// per warp: the vote of the odd inputs and its count, each lane's rank
+// among the odd lanes below it, and the input of the mirror lane through
+// shared memory (a warp barrier between the write and the read)
+__global__ void vote(const int* in, unsigned* mask, int* count, int* rank,
+                     int* mirror) {
+  __shared__ int buf[THREADS];
+  const int t = threadIdx.x, lane = t & 31;
+  const int g = blockIdx.x * THREADS + t;
+  const int odd = in[g] & 1;
+  const unsigned m = __ballot_sync(0xffffffffu, odd);
+  if (lane == 0) mask[g >> 5] = m;
+  count[g] = __popc(m);
+  rank[g] = __popc(m & ((1u << lane) - 1));
+  buf[t] = in[g];
+  SYNCWARP
+  mirror[g] = buf[(t & ~31) | (31 - lane)];
+}
+// a histogram of in & 15 in shared memory, added to the global one
+__global__ void histogram(const int* in, int* hist) {
+  __shared__ int h[16];
+  const int t = threadIdx.x;
+  if (t < 16) h[t] = 0;
+  __syncthreads();
+  atomicAdd(h + (in[blockIdx.x * THREADS + t] & 15), 1);
+  __syncthreads();
+  if (t < 16) atomicAdd(hist + t, h[t]);
+}
+// blocks chained in the order of their tickets (or, with by_index, of
+// blockIdx): each waits for its predecessor's flag, then sets its own
+__global__ void chained(int* counter, int* order, volatile int* flag,
+                        int by_index) {
+  __shared__ int ticket;
+  if (threadIdx.x == 0) ticket = atomicAdd(counter, 1);
+  __syncthreads();
+  const int k = by_index ? static_cast<int>(blockIdx.x) : ticket;
+  if (threadIdx.x == 0) {
+    while (k > 0 && flag[k - 1] == 0) __nanosleep(32);
+    order[k] = blockIdx.x;
+    flag[k] = k > 0 ? flag[k - 1] + 1 : 1;
+  }
+}
+// each block reads back its own shared memory after two barriers, at
+// which other resident blocks run
+__global__ void own_smem(int* out) {
+  __shared__ int mine[THREADS];
+  const int t = threadIdx.x;
+  mine[t] = blockIdx.x * THREADS + t;
+  __syncthreads();
+  __syncthreads();
+  out[blockIdx.x * THREADS + t] = mine[(t + 1) % THREADS];
+}
+}  // namespace
+extern "C" cudaError_t vote_launch(const void* in, void* mask, void* count,
+                                   void* rank, void* mirror, int B,
+                                   cudaStream_t stream) {
+  vote<<<B, THREADS, 0, stream>>>(static_cast<const int*>(in),
+                                  static_cast<unsigned*>(mask),
+                                  static_cast<int*>(count),
+                                  static_cast<int*>(rank),
+                                  static_cast<int*>(mirror));
+  return cudaGetLastError();
+}
+extern "C" cudaError_t histogram_launch(const void* in, void* hist, int B,
+                                        cudaStream_t stream) {
+  histogram<<<B, THREADS, 0, stream>>>(static_cast<const int*>(in),
+                                       static_cast<int*>(hist));
+  return cudaGetLastError();
+}
+extern "C" cudaError_t chained_launch(void* counter, void* order,
+                                      void* flag, int B, int by_index,
+                                      cudaStream_t stream) {
+  chained<<<B, THREADS, 0, stream>>>(static_cast<int*>(counter),
+                                     static_cast<int*>(order),
+                                     static_cast<int*>(flag), by_index);
+  return cudaGetLastError();
+}
+extern "C" cudaError_t own_smem_launch(void* out, int B,
+                                       cudaStream_t stream) {
+  own_smem<<<B, THREADS, 0, stream>>>(static_cast<int*>(out));
+  return cudaGetLastError();
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def warp_libs(tmp_path_factory):
+    """SHIM_WARP built with and without its warp barrier (blocks in a
+    seeded random order), and with it and 12 blocks resident at once, 64
+    threads a block."""
+    libs = {}
+    for name, sync, more in (("sync", "__syncwarp();", ()),
+                             ("nosync", "", ()),
+                             ("resident", "__syncwarp();",
+                              ("SHIM_RESIDENT_BLOCKS=12",))):
+        d = tmp_path_factory.mktemp("warp_" + name)
+        lib = build_on_cpu(SHIM_WARP.replace("SYNCWARP", sync), d,
+                           ("THREADS=64", "SHIM_SHUFFLE_BLOCKS", *more),
+                           stamped=False)
+        lib.vote_launch.argtypes = [ctypes.c_void_p] * 5 + [
+            ctypes.c_int, ctypes.c_void_p]
+        lib.histogram_launch.argtypes = [ctypes.c_void_p] * 2 + [
+            ctypes.c_int, ctypes.c_void_p]
+        lib.chained_launch.argtypes = [ctypes.c_void_p] * 3 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.own_smem_launch.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                        ctypes.c_void_p]
+        libs[name] = lib
+    return libs
+
+
+def run_vote(lib, x):
+    B = len(x) // 64
+    mask = np.zeros(B * 2, np.uint32)
+    count, rank, mirror = (np.zeros(len(x), np.int32) for _ in range(3))
+    assert lib.vote_launch(x.ctypes.data, mask.ctypes.data,
+                           count.ctypes.data, rank.ctypes.data,
+                           mirror.ctypes.data, B, None) == 0
+    return mask, count, rank, mirror
+
+
+def test_stand_in_votes_and_counts_bits(warp_libs):
+    """__ballot_sync gives each lane the warp's mask of true predicates,
+    __popc its count, and the count below a lane its rank among them."""
+    lib = warp_libs["sync"]
+    x = np.random.default_rng(3).integers(0, 1000, 4 * 64).astype(np.int32)
+    mask, count, rank, _ = run_vote(lib, x)
+    odd = (x & 1).reshape(-1, 32)
+    want = (odd.astype(np.uint64) << np.arange(32, dtype=np.uint64)).sum(1)
+    np.testing.assert_array_equal(mask, want.astype(np.uint32))
+    np.testing.assert_array_equal(count.reshape(-1, 32),
+                                  np.repeat(odd.sum(1)[:, None], 32, 1))
+    np.testing.assert_array_equal(rank.reshape(-1, 32),
+                                  np.cumsum(odd, 1) - odd)
+
+
+def test_stand_in_syncs_a_warp(warp_libs):
+    """__syncwarp makes each lane's shared-memory write visible to the
+    others of its warp; without it the stand-in's schedule lets a lane
+    read its mirror's slot before the mirror wrote it."""
+    libs = warp_libs
+    x = np.random.default_rng(4).integers(0, 1000, 8 * 64).astype(np.int32)
+    want = x.reshape(-1, 32)[:, ::-1].reshape(-1)
+    np.testing.assert_array_equal(run_vote(libs["sync"], x)[3], want)
+    assert not np.array_equal(run_vote(libs["nosync"], x)[3], want)
+
+
+def test_stand_in_adds_atomically_in_shared_memory(warp_libs):
+    """atomicAdd on a shared-memory histogram and then on a global one
+    counts every input once."""
+    lib = warp_libs["sync"]
+    x = np.random.default_rng(5).integers(0, 1000, 6 * 64).astype(np.int32)
+    hist = np.zeros(16, np.int32)
+    assert lib.histogram_launch(x.ctypes.data, hist.ctypes.data, 6,
+                                None) == 0
+    np.testing.assert_array_equal(hist, np.bincount(x & 15, minlength=16))
+
+
+def test_stand_in_orders_blocks_by_ticket(warp_libs):
+    """The stand-in starts blocks in a seeded random order: blocks that
+    chain by a ticket from an atomic counter finish in ticket order, and
+    blocks that chain by blockIdx wait on a block not yet started, which
+    the stand-in reports as a launch error rather than hanging."""
+    lib = warp_libs["sync"]
+    B = 12
+    counter = np.zeros(1, np.int32)
+    order = np.full(B, -1, np.int32)
+    flag = np.zeros(B, np.int32)
+    assert lib.chained_launch(counter.ctypes.data, order.ctypes.data,
+                              flag.ctypes.data, B, 0, None) == 0
+    assert sorted(order) == list(range(B)) and \
+        order.tolist() != list(range(B))
+    np.testing.assert_array_equal(flag, np.arange(1, B + 1))
+    counter[:], flag[:] = 0, 0
+    assert lib.chained_launch(counter.ctypes.data, order.ctypes.data,
+                              flag.ctypes.data, B, 1, None) == 719
+
+
+def test_stand_in_runs_resident_blocks_at_once(warp_libs):
+    """Built with SHIM_RESIDENT_BLOCKS, the stand-in interleaves the
+    fibers of that many blocks: blocks chained by blockIdx, which wait on
+    blocks started after them, finish (each one waited on runs beside
+    it); each block keeps its own shared memory and warp votes across
+    the others' turns; and more blocks than are resident still all run."""
+    lib = warp_libs["resident"]
+    B = 12
+    counter = np.zeros(1, np.int32)
+    order = np.full(B, -1, np.int32)
+    flag = np.zeros(B, np.int32)
+    assert lib.chained_launch(counter.ctypes.data, order.ctypes.data,
+                              flag.ctypes.data, B, 1, None) == 0
+    np.testing.assert_array_equal(order, np.arange(B))
+    np.testing.assert_array_equal(flag, np.arange(1, B + 1))
+    out = np.zeros(3 * B * 64, np.int32)
+    assert lib.own_smem_launch(out.ctypes.data, 3 * B, None) == 0
+    want = np.arange(3 * B * 64).reshape(-1, 64)
+    np.testing.assert_array_equal(out.reshape(-1, 64),
+                                  np.roll(want, -1, axis=1))
+    x = np.random.default_rng(6).integers(0, 1000, 30 * 64).astype(np.int32)
+    for got, want in zip(run_vote(lib, x), run_vote(warp_libs["sync"], x)):
+        np.testing.assert_array_equal(got, want)
 
 
 def test_ring_check_finds_a_column_that_another_overwrote():

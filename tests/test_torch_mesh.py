@@ -171,8 +171,7 @@ def test_sharded_probe_step_matches_jax(small_index, D):
     np.testing.assert_array_equal(s.numpy(), np.asarray(s_j))
     assert (c.numpy()[pad] == 0).all() and (c.numpy()[~pad & ~miss] > 0).all()
     index = sd.prepare_index_device(mi, "cpu")
-    s_r, c_r = sd.probe_counts(index["keys"], index["start"], index["cnt"],
-                               torch.from_numpy(q_t))
+    s_r, c_r = sd.probe_index(index, torch.from_numpy(q_t))
     assert torch.equal(s, s_r) and torch.equal(c, c_r)
 
 

@@ -1,15 +1,24 @@
 """The port's device seeding (mm2tpu_torch/ops/seed_device.py: the index
-probe K5 and the anchor build K6, with the sort and K1) against the JAX
-package's (mm2tpu/parallel/mesh.py::lookup_index_device and
+probe K5 and the anchor pipeline K6, with K1) against the JAX package's
+(mm2tpu/parallel/mesh.py::lookup_index_device and
 mm2tpu/ops/seed_device.py::seed_chain_device, whose K1 runs in interpret
-mode), and the CUDA source of both kernels (csrc/seed.cu) built with g++
-against the CPU stand-in of CUDA in tests/test_torch_ksw2_shim.py against
-the plain versions.
+mode); the bucket table against the host index's native LUT; and the
+CUDA source of both kernels (csrc/seed.cu) built with g++ against the
+CPU stand-in of CUDA in tests/test_torch_ksw2_shim.py (blocks started in
+a shuffled order) against the plain versions, with each barrier between
+passes removed in turn.
 
 The same seeded genome goes into both packages' own indexes, and the same
 reads' minimizers (the port's sketch) into both probes and both builds.
 Integer outputs and the f32 avg: exact equality."""
+import ctypes
+import faulthandler
 import functools
+import os
+import signal
+import time
+import warnings
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -199,7 +208,7 @@ def test_probe_matches_lookup_index_device():
     idx = sd.prepare_index_device(mi, "cpu")
     calls = dict(sd.reference_calls)
     qt = torch.from_numpy(np.append(q.astype(np.int64), sd.PAD_Q))
-    s, c = sd.probe_counts(idx["keys"], idx["start"], idx["cnt"], qt)
+    s, c = sd.probe_index(idx, qt)
     assert sd.reference_calls["probe"] == calls["probe"] + 1
     assert s.dtype == c.dtype == torch.int32
     np.testing.assert_array_equal(s[:-1].numpy(), np.asarray(js))
@@ -296,25 +305,36 @@ def test_anchor_reassembly_round_trips():
     assert (hi[0, n:] == sd.PAD_HI).all() and (qi[0, n:] == 0).all()
 
 
-def synthetic_index(seed):
-    """A small CSR index: 300 sorted keys, 1-12 hits each, positions on 3
-    rids and both strands."""
+def synthetic_index(seed, n_keys=300, rid_max=2, rpos_bits=20,
+                    tie_key=None):
+    """A small CSR index: `n_keys` sorted keys, 1-12 hits each, positions
+    on rids 0..rid_max and both strands, rpos below 2^rpos_bits, with the
+    largest rid and rpos present (the top bits of K6's packed key). With
+    `tie_key` = (k, c), key k has c hits at one position (equal x)."""
     rng = np.random.default_rng(seed)
-    keys = np.sort(rng.choice(1 << 40, 300, replace=False)).astype(np.int64)
+    keys = np.sort(rng.choice(1 << 40, n_keys, replace=False)) \
+        .astype(np.int64)
     cnt = rng.integers(1, 13, len(keys)).astype(np.int32)
+    if tie_key is not None:
+        cnt[tie_key[0]] = tie_key[1]
     start = np.concatenate([[0], np.cumsum(cnt)[:-1]]).astype(np.int32)
     npos = int(cnt.sum())
-    pos = (rng.integers(0, 3, npos).astype(np.int64) << 32) | \
-        (rng.integers(0, 1 << 20, npos).astype(np.int64) << 1) | \
-        rng.integers(0, 2, npos).astype(np.int64)
+    rid = rng.integers(0, rid_max + 1, npos).astype(np.int64)
+    rpos = rng.integers(0, 1 << rpos_bits, npos).astype(np.int64)
+    rid[npos // 2], rpos[npos // 3] = rid_max, (1 << rpos_bits) - 1
+    pos = (rid << 32) | (rpos << 1) | rng.integers(0, 2, npos)
+    if tie_key is not None:
+        k = tie_key[0]
+        pos[start[k]:start[k] + cnt[k]] = pos[start[k]]
     return keys, start, cnt, pos
 
 
-def synthetic_bucket(keys, cnt, B, M, seed, mid_occ):
+def synthetic_bucket(keys, cnt, B, M, seed, mid_occ, tie_key=None):
     """Queries of B ragged rows (lengths cycle through M, 7 M / 11, 0: the
     last an empty row), 60% of them hits, with the first two rows holding
     keys whose count is mid_occ - 1 and mid_occ; the rows' qpos, qyhi
-    and qlen."""
+    and qlen. With `tie_key`, row 1 is that key M times on one strand:
+    every anchor of the row has the same x."""
     rng = np.random.default_rng(seed)
     q = np.full((B, M), sd.PAD_Q, np.int64)
     for b in range(B):
@@ -322,109 +342,355 @@ def synthetic_bucket(keys, cnt, B, M, seed, mid_occ):
         q[b, :L] = np.where(rng.random(L) < 0.6,
                             keys[rng.integers(0, len(keys), L)],
                             rng.integers(0, 1 << 40, L))
-    for b, c in ((0, mid_occ - 1), (1, mid_occ)):
+    for b, c in ((0, mid_occ - 1), (1, mid_occ))[:B]:
         at = np.nonzero(cnt == c)[0]
         q[b, 3:3 + len(at[:4])] = keys[at[:4]]
     qpos = ((rng.integers(0, 5000, (B, M)) << 1) |
             rng.integers(0, 2, (B, M))).astype(np.int32)
     qyhi = (rng.integers(10, 20, (B, M)) |
             (rng.integers(0, 2, (B, M)) << 10)).astype(np.int32)
+    if tie_key is not None:
+        q[1] = keys[tie_key[0]]
+        qpos[1] &= ~1
     qlen = np.full(B, 6000, np.int32)
     return q, qpos, qyhi, qlen
 
 
-# (B, M, N, threads a K6 block): several tiles of the scan a row, one warp
-# a block, the kernel's own 512, and a row whose total passes N
-SHIM_CASES = {"t64": (5, 300, 1024, 64), "t32": (3, 70, 1024, 32),
-              "t512": (2, 700, 2048, None), "over_n": (2, 300, 256, 64)}
+def skewed_keys(n, crowd, seed):
+    """n sorted distinct keys, `crowd` of them in one bucket of the table
+    (consecutive values just above 2^39), the rest spread below 2^40."""
+    rng = np.random.default_rng(seed)
+    spread = rng.choice(1 << 40, 2 * n, replace=False)
+    spread = spread[(spread < 1 << 39) | (spread > (1 << 39) + 10 * crowd)]
+    keys = np.concatenate([spread[:n - crowd],
+                           (1 << 39) + 3 * np.arange(crowd)])
+    return np.sort(keys).astype(np.int64)
 
 
-def shim_lib(threads, out_dir, mutant=None):
+def native_lut_of(keys):
+    """`MMIndex._native_lut` of a key array."""
+    return port_build.MMIndex._native_lut(
+        SimpleNamespace(keys=keys.astype(np.uint64), _nlut=None))
+
+
+@pytest.mark.parametrize("which", ["genome", "70000", "skewed", "one"])
+def test_bucket_table_equals_the_native_lut(which):
+    """The table that `bucket_table` builds with torch's integer ops (as
+    on the card) is the host index's native LUT: its bits, shift and
+    offsets; a key set of 0 keys gets an empty table of 2 buckets."""
+    if which == "genome":
+        mi, _ = indexes()
+        keys = mi.keys.astype(np.int64)
+        table = sd.prepare_index_device(mi, "cpu")["table"]
+    else:
+        keys = {"70000": synthetic_index(4, n_keys=70000)[0],
+                "skewed": skewed_keys(70000, 2500, 6),
+                "one": np.array([12345], np.int64)}[which]
+        ones = torch.ones(len(keys), dtype=torch.int32)
+        table = sd.bucket_table(torch.from_numpy(keys), ones, ones)
+    bits, shift, lut = native_lut_of(keys)
+    assert (table.bits, table.shift) == (bits, shift)
+    assert table.lut.dtype == torch.int32
+    np.testing.assert_array_equal(table.lut.numpy(), lut)
+    if which == "skewed":
+        assert int(np.diff(lut).max()) >= 2000
+    empty = sd.bucket_table(torch.zeros(0, dtype=torch.int64),
+                            torch.zeros(0, dtype=torch.int32),
+                            torch.zeros(0, dtype=torch.int32))
+    assert (empty.bits, empty.shift) == (1, 0)
+    assert empty.lut.tolist() == [0, 0, 0]
+
+
+# ---- csrc/seed.cu on the CUDA stand-in ----
+
+# K6's builds: threads a block and slots a thread (a small tile makes a
+# row span many blocks of the expand and many tickets of the sort); the
+# stand-in starts the blocks in a seeded random order and runs RESIDENT
+# of them at once, on a card of 3 multiprocessors: a grid of at most 6
+# blocks, fewer than the slot ranges and tiles of most cases, and all of
+# them resident (with 3, no tile's look-back met an aggregate word)
+BUILDS = {"t256": (None, None), "t64": (64, 2), "t32": (32, 1)}
+RESIDENT = 6
+# sources with one barrier between passes removed (each must fail), on
+# the t64 build: the scan of (a) (tile counts), the staging of a tile in
+# (c), and in (d) the ranks before the look-back, the look-back before
+# the scatter, the scatter before the next ticket, and the warp's rank
+# reads before its count update; and two faults of (d)'s look-back: an
+# aggregate word (a tile's own count, its prefix not yet known) taken as
+# inclusive, and an unpublished word taken as an inclusive 0
+MUTANTS = {
+    "scan": ("  if (lane == 31) sums[w] = v;\n  __syncthreads();",
+             "  if (lane == 31) sums[w] = v;"),
+    "staging": ("        cum[t] = INT_MAX;\n      }\n      __syncthreads();",
+                "        cum[t] = INT_MAX;\n      }"),
+    "ranks": ("      __syncwarp();\n    }\n    __syncthreads();",
+              "      __syncwarp();\n    }"),
+    "look-back": ("      prefix[d] = before;\n    }\n    __syncthreads();",
+                  "      prefix[d] = before;\n    }"),
+    "next ticket": ("    __syncthreads();  // the next ticket",
+                    "    // the next ticket"),
+    "warp": ("      rank[k] = wcnt[w][d] + __popc(below);\n"
+             "      __syncwarp();",
+             "      rank[k] = wcnt[w][d] + __popc(below);"),
+    "aggregate as inclusive": (
+        "            inc = stop = (v[k] & FLAG_INC) != 0;",
+        "            inc = stop = true;"),
+    "unpublished as inclusive": (
+        "            if (v[k] == 0) {\n              stop = true;",
+        "            if (v[k] == 0) {\n              inc = stop = true;"),
+}
+BARRIERS = ["scan", "staging", "ranks", "look-back", "next ticket", "warp"]
+
+
+@pytest.fixture(scope="module")
+def seed_libs(tmp_path_factory):
+    """Every build of csrc/seed.cu the tests use, built side by side:
+    BUILDS by name and MUTANTS as "mutant:<name>"."""
     src = SRC.read_text()
-    if mutant:
-        old, new = mutant
+    jobs = {}
+    for name, (threads, items) in BUILDS.items():
+        jobs[name] = (src, threads, items)
+    for name, (old, new) in MUTANTS.items():
         assert src.count(old) == 1, old
-        src = src.replace(old, new)
-    defines = () if threads is None else ("SEED_THREADS=%d" % threads,)
-    return build_on_cpu(src, Path(out_dir), defines, stamped=False)
+        jobs["mutant:" + name] = (src.replace(old, new), *BUILDS["t64"])
+
+    dirs = {name: tmp_path_factory.mktemp(
+        "seed_" + name.replace(":", "_").replace(" ", "_")) for name in jobs}
+
+    def build(item):
+        name, (text, threads, items) = item
+        defines = ["SHIM_SHUFFLE_BLOCKS",
+                   "SHIM_RESIDENT_BLOCKS=%d" % RESIDENT]
+        if threads:
+            defines += ["SEED_THREADS=%d" % threads, "SEED_ITEMS=%d" % items]
+        return name, build_on_cpu(text, dirs[name], defines, stamped=False)
+
+    with ThreadPoolExecutor(8) as pool:
+        return dict(pool.map(build, jobs.items()))
 
 
-def run_shim(lib, B, M, N, seed, mid_occ=9):
-    """K5 then K6 of the stand-in build on a synthetic bucket, with the
-    plain versions on the same inputs; outputs start as garbage."""
-    keys, start, cnt, pos = synthetic_index(seed)
-    q, qpos, qyhi, qlen = synthetic_bucket(keys, cnt, B, M, seed, mid_occ)
-    s = np.full((B, M), GARBAGE, np.int32)
-    c = np.full((B, M), GARBAGE, np.int32)
-    assert lib.mm2tpu_seed_probe(keys.ctypes.data, start.ctypes.data,
-                                 cnt.ctypes.data, len(keys), q.ctypes.data,
-                                 B * M, s.ctypes.data, c.ctypes.data,
-                                 None) == 0
-    key = np.full((B, N), GARBAGE, np.int64)
-    y = np.full((B, N), GARBAGE, np.int64)
-    n = np.full(B, GARBAGE, np.int32)
-    assert lib.mm2tpu_seed_build(s.ctypes.data, c.ctypes.data,
-                                 qpos.ctypes.data, qyhi.ctypes.data,
-                                 qlen.ctypes.data, pos.ctypes.data,
-                                 key.ctypes.data, y.ctypes.data,
-                                 n.ctypes.data, B, M, N, mid_occ, None) == 0
+def shim_probe(lib, index, q):
+    """K5 of a stand-in build on host queries; outputs start as garbage."""
+    t = index["table"]
+    s = np.full(q.shape, GARBAGE, np.int32)
+    c = np.full(q.shape, GARBAGE, np.int32)
+    assert lib.mm2tpu_seed_probe(
+        t.keys.data_ptr(), t.lut.data_ptr(), t.sc.data_ptr(), t.bits,
+        t.shift, q.ctypes.data, q.size, s.ctypes.data, c.ctypes.data,
+        None) == 0
+    return s, c
+
+
+def shim_anchors(lib, index, q, qpos, qyhi, qlen, N, mid_occ):
+    """K6 of a stand-in build; returns its error, the planes and n, which
+    start as garbage."""
+    t = index["table"]
+    B, M = q.shape
+    nbytes, passes = ctypes.c_longlong(), ctypes.c_int()
+    assert lib.mm2tpu_seed_workspace(
+        B, M, N, index["rid_bits"], index["pos_bits"], ctypes.byref(nbytes),
+        ctypes.byref(passes)) == 0
+    ws = np.full(nbytes.value, 0x5A, np.uint8)
+    planes = np.full((4, B, N), GARBAGE, np.int32)
+    yhi = np.full((B, N), 0x5A5A, np.int16)
+    n = np.full((B, 1), GARBAGE, np.int32)
+    err = lib.mm2tpu_seed_anchors(
+        t.keys.data_ptr(), t.lut.data_ptr(), t.sc.data_ptr(), t.bits,
+        t.shift, index["pos"].data_ptr(), q.ctypes.data, qpos.ctypes.data,
+        qyhi.ctypes.data, qlen.ctypes.data, B, M, N, mid_occ,
+        index["rid_bits"], index["pos_bits"], ws.ctypes.data,
+        nbytes.value, *(planes[k].ctypes.data for k in range(4)),
+        yhi.ctypes.data, n.ctypes.data, None)
+    return err, (*planes, yhi, n), passes.value
+
+
+def probe_queries(keys, seed):
+    """Hits, values below, between and above every key, and a pad."""
+    rng = np.random.default_rng(seed)
+    if len(keys) == 0:
+        return np.array([0, 5, 1 << 40, sd.PAD_Q], np.int64)
+    pick = keys[rng.integers(0, len(keys), 2000)]
+    return np.concatenate([
+        pick, pick + 1, pick - 1, keys[[0, -1]], [0, keys[0] - 1,
+                                                  keys[-1] + 1, 1 << 56,
+                                                  (1 << 62) + 7, sd.PAD_Q],
+        rng.integers(0, 1 << 41, 1000)]).astype(np.int64)
+
+
+@pytest.mark.parametrize("which", ["empty", "one", "70000", "skewed"])
+def test_probe_on_the_stand_in_equals_the_plain_version(which, seed_libs):
+    """csrc/seed.cu's K5 through the bucket table, built with g++ against
+    the CUDA stand-in, gives the plain version's (start, cnt) on key sets
+    of 0, 1 and 70,000 keys and on one whose crowded bucket holds 2,500
+    keys (binary steps inside the bucket), for hits, misses below,
+    between and above every key, values past the table's last bucket and
+    a pad."""
+    keys = {"empty": np.zeros(0, np.int64),
+            "one": np.array([1 << 38], np.int64),
+            "70000": synthetic_index(8, n_keys=70000)[0],
+            "skewed": skewed_keys(70000, 2500, 9)}[which]
+    cnt = (np.arange(len(keys)) % 7 + 1).astype(np.int32)
+    start = (3 * np.arange(len(keys))).astype(np.int32)
+    index = sd.device_index(keys, start, cnt, "cpu")
+    q = probe_queries(keys, seed=len(keys))
+    if which == "skewed":
+        crowd = keys[(keys >= 1 << 39) & (keys < (1 << 39) + 10 ** 5)]
+        q = np.concatenate([q, crowd[::7], crowd[::7] + 1])
+    got = shim_probe(seed_libs["t256"], index, q)
+    with one_torch_thread():
+        want = sd.probe_counts_reference(index["keys"], index["start"],
+                                         index["cnt"], torch.from_numpy(q))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w.numpy())
+    assert (got[1] > 0).sum() == (0 if which == "empty" else
+                                  np.isin(q, keys).sum())
+    assert (got[0][-1], got[1][-1]) == (0, 0) or which == "skewed"
+
+
+# (B, M, N, build, index and bucket options) of the K6 cases
+PIPE_CASES = {
+    "tiles": (5, 700, 4096, "t64", {}),
+    "t256": (3, 700, 2048, "t256", {}),
+    "one_warp": (3, 70, 1024, "t32", {}),
+    "over_n": (2, 300, 256, "t64", {}),
+    "ties": (3, 300, 2048, "t64", {"tie_key": (7, 5)}),
+    "top_bits": (5, 300, 2048, "t64", {"rid_max": 1000, "rpos_bits": 31}),
+    "one_pass": (1, 300, 2048, "t64", {"rid_max": 0, "rpos_bits": 6}),
+}
+
+
+def pipeline_inputs(case, seed, mid_occ=9):
+    """The index and the bucket of a K6 case, and the plain versions'
+    planes and n on them."""
+    B, M, N, _, opts = PIPE_CASES[case]
+    keys, start, cnt, pos = synthetic_index(seed, **opts)
+    q, qpos, qyhi, qlen = synthetic_bucket(keys, cnt, B, M, seed, mid_occ,
+                                           opts.get("tie_key"))
+    index = sd.device_index(keys, start, cnt, "cpu", pos=pos)
     T = torch.from_numpy
     with one_torch_thread():
-        s2, c2 = sd.probe_counts_reference(T(keys), T(start), T(cnt), T(q))
-        k2, y2, n2 = sd.build_anchors_reference(
-            s2, c2, T(qpos), T(qyhi), T(qlen), T(pos), N=N, mid_occ=mid_occ)
-    return (s, c, key, y, n), tuple(t.numpy() for t in (s2, c2, k2, y2, n2))
+        want = sd.seed_anchors_reference(index, T(q), T(qpos), T(qyhi),
+                                         T(qlen), N=N, mid_occ=mid_occ)
+    return (index, q, qpos, qyhi, qlen, N, mid_occ), \
+        tuple(t.numpy() for t in want)
 
 
-@pytest.mark.parametrize("case", list(SHIM_CASES))
+def run_pipeline(lib, case, seed):
+    """K6 of the stand-in build on a K6 case, and the plain versions on
+    the same inputs. Returns (error, got, want, passes)."""
+    args, want = pipeline_inputs(case, seed)
+    err, got, passes = shim_anchors(lib, *args)
+    return err, got, want, passes
+
+
+@pytest.mark.parametrize("case", list(PIPE_CASES))
 def test_cuda_source_on_the_stand_in_equals_the_plain_versions(
-        case, tmp_path_factory):
-    """csrc/seed.cu's K5 and K6, built with g++ against the CUDA stand-in,
-    give the plain versions' (start, cnt), keys, y words and n on ragged
-    rows, an empty row, minimizers at mid_occ - 1 (kept) and at mid_occ
-    (dropped), and a row whose total passes N (n unclamped, the first N
-    slots built)."""
-    B, M, N, threads = SHIM_CASES[case]
-    lib = shim_lib(threads, str(tmp_path_factory.mktemp("seed_%s" % case)))
-    got, want = run_shim(lib, B, M, N, seed=len(case) + M)
-    for name, g, w in zip(("start", "cnt", "key", "y", "n"), got, want):
+        case, seed_libs):
+    """csrc/seed.cu's K6 (probe, count, offsets, expand, radix sort into
+    K1's planes), built with g++ against the CUDA stand-in, gives the
+    plain versions' hi, lo, qi, span, yhi and n: on ragged rows whose
+    slots span many blocks and tickets, an empty row, minimizers at
+    mid_occ - 1 (kept) and at mid_occ (dropped), a row whose total passes
+    N (n unclamped, its first N slots sorted), a row whose anchors all
+    have one x (slot order kept), rids and rpos at the packed key's top
+    bits (six passes of the sort) and a key of one pass; its blocks
+    resident together (a tile's look-back finds earlier tiles' words
+    unpublished or aggregate), and its grid smaller than the work."""
+    B, M, N, build, _ = PIPE_CASES[case]
+    err, got, want, passes = run_pipeline(seed_libs[build], case,
+                                          seed=len(case) + M)
+    assert err == 0
+    for name, g, w in zip(("hi", "lo", "qi", "span", "yhi", "n"), got,
+                          want):
         np.testing.assert_array_equal(g, w, err_msg=name)
-    n = want[4]
+    n = want[5][:, 0]
     assert (n[2::3] == 0).all() and (n[:2] > 0).all()
     assert (n > N).any() == (case == "over_n")
+    if case == "ties":
+        k = int(n[1])
+        assert k > 100 and len(set(got[0][1, :k])) == 1 and \
+            len(set(got[1][1, :k])) == 1 and len(set(got[2][1, :k])) > 1
+    if case in ("top_bits", "one_pass"):
+        assert passes == {"top_bits": 6, "one_pass": 1}[case]
+    if case == "tiles":   # more slot ranges and tiles than the 6 blocks
+        assert np.minimum(n, N).sum() > 4 * 6 * 64 * 2
 
 
-def test_cuda_source_without_the_scan_barrier_fails(tmp_path_factory):
+def mutant_fails(lib, case="tiles"):
+    """True when a stand-in build gives other planes than the plain
+    versions on `case`, returns an error, or crashes: the build runs in a
+    child process (a mutant's offsets may write out of bounds), which
+    runs only the build's C code."""
+    B, M, N, _, _ = PIPE_CASES[case]
+    args, want = pipeline_inputs(case, seed=len(case) + M)
+    with warnings.catch_warnings():   # fork() of a threaded process
+        warnings.simplefilter("ignore")
+        pid = os.fork()
+    if pid == 0:
+        code = 1
+        try:
+            faulthandler.disable()
+            err, got, _ = shim_anchors(lib, *args)
+            code = int(err == 0 and all(np.array_equal(g, w)
+                                        for g, w in zip(got, want)))
+        finally:
+            os._exit(code)
+    for _ in range(1200):     # a hang counts as a failure after 120 s
+        done, status = os.waitpid(pid, os.WNOHANG)
+        if done:
+            return not (os.WIFEXITED(status) and os.WEXITSTATUS(status) == 1)
+        time.sleep(0.1)
+    os.kill(pid, signal.SIGKILL)
+    os.waitpid(pid, 0)
+    return True
+
+
+def test_cuda_source_without_the_scan_barrier_fails(seed_libs):
     """The same source with the barrier between the warps' sums and their
     scan removed gives other anchors on the stand-in, whose scheduler lets
-    warps fall behind: the test above would see a race."""
-    B, M, N, threads = SHIM_CASES["t64"]
-    lib = shim_lib(threads, str(tmp_path_factory.mktemp("seed_mutant")),
-                   ("if (lane == 31) warp_sum[w] = v;\n    __syncthreads();",
-                    "if (lane == 31) warp_sum[w] = v;"))
-    got, want = run_shim(lib, B, M, N, seed=len("t64") + M)
-    assert not all(np.array_equal(g, w) for g, w in zip(got[2:], want[2:]))
+    warps fall behind: the test above would see a race. The unchanged
+    source, run the same way in a child, passes."""
+    assert not mutant_fails(seed_libs["t64"])
+    assert mutant_fails(seed_libs["mutant:scan"])
+
+
+@pytest.mark.parametrize("mutant", [m for m in BARRIERS if m != "scan"])
+def test_cuda_source_without_a_pass_barrier_fails(mutant, seed_libs):
+    """Each barrier between two passes of K6 is needed: without it the
+    stand-in's schedule gives other planes, an error or a crash."""
+    assert mutant_fails(seed_libs["mutant:" + mutant])
+
+
+@pytest.mark.parametrize("mutant", [m for m in MUTANTS
+                                    if m not in BARRIERS])
+def test_cuda_source_with_a_faulty_look_back_fails(mutant, seed_libs):
+    """The sort's look-back must sum aggregate words back to an inclusive
+    one and wait for an unpublished word: the stand-in's resident blocks
+    leave earlier tiles' words in both states, so a look-back that takes
+    either for an inclusive word gives other planes."""
+    assert mutant_fails(seed_libs["mutant:" + mutant])
 
 
 def test_wrappers_run_the_plain_versions_on_the_cpu_only():
     """CPU tensors go to the plain versions (counted, no launch); tensors
     on another device are refused rather than moved."""
-    keys, start, cnt, pos = (torch.from_numpy(a) for a in synthetic_index(3))
-    q = keys[:8].reshape(2, 4).contiguous()
+    keys, start, cnt, pos = synthetic_index(3)
+    index = sd.device_index(keys, start, cnt, "cpu", pos=pos)
+    q = index["keys"][:8].reshape(2, 4).contiguous()
     launches = dict(sd.launches)
     calls = dict(sd.reference_calls)
-    s, c = sd.probe_counts(keys, start, cnt, q)
+    sd.probe_index(index, q)
     qpos = torch.zeros((2, 4), dtype=torch.int32)
-    sd.build_anchors(s, c, qpos, qpos, torch.ones(2, dtype=torch.int32), pos,
-                     N=64, mid_occ=50)
+    sd.seed_anchors(index, q, qpos, qpos, torch.ones(2, dtype=torch.int32),
+                    N=64, mid_occ=50)
     assert sd.launches == launches
-    assert sd.reference_calls == {k: v + 1 for k, v in calls.items()}
+    assert sd.reference_calls == {k: v + 2 if k == "probe" else v + 1
+                                  for k, v in calls.items()}
     meta = q.to("meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        sd.probe_counts(keys, start, cnt, meta)
+        sd.probe_index(index, meta)
     with pytest.raises(ValueError, match="unsupported device"):
-        sd.build_anchors(s.to("meta"), c.to("meta"), qpos, qpos, qpos, pos,
-                         N=64, mid_occ=50)
+        sd.seed_anchors(index, meta, qpos, qpos, qpos, N=64, mid_occ=50)
 
 
 @pytest.mark.parametrize("preset", ["map-ont", "map-pb", "asm20", "sr",
