@@ -3,8 +3,10 @@
 (PAF, host-seeded and device-seeded, and SAM), -x sr read pairs and -x
 splice spliced reads (PAF, and SAM and PAF with CIGARs through the splice
 kernel) in batch mode, -x map-ont in stream mode (each chaining task
-placed on the host or the card on its own), with --split-prefix, and
--x map-ont over a data-parallel mesh (--mesh) on the 8 B delta wire.
+placed on the host or the card on its own), with --split-prefix,
+-x map-ont over a data-parallel mesh (--mesh) on the 8 B delta wire, in
+several host processes (--hosts) and through the mappy-compatible API
+(mm2tpu_torch.mappy).
 
 Run from the root of a checkout, with no arguments, for the gate (every
 phase but the deep parity runs, 7 and 10):
@@ -20,12 +22,13 @@ the extd2 kernel, `--phases 1,3,5,6` to add the map-ont SAM path,
 `--phases 1,3b,9` for the splice kernel and the spliced-read path,
 `--phases 1,2,4` for the chaining kernel's K1 and K2, `--phases 1,5,5s`
 for the seeding kernels K5 and K6 and the device-seeded path, `--phases
-1,5,5r` for the stream mode, `--phases 1,5,5m` for the mesh) to run
+1,5,5r` for the stream mode, `--phases 1,5,5m` for the mesh, `--phases
+1,5,5h,5p` for the host processes and the API) to run
 phase 0, the named phases and phase 11's import check only; the kernel
 JSON line then lists only the kernels whose phase ran (launches null
-where their path's phase did not run). Phases 5s, 5r, 5m and 6 need 5, 7 needs
-5 and 6, and 10 needs 8 and 9: a list that names one without the other
-is refused. Phases 8 and 9 generate the genome of phase 5 themselves.
+where their path's phase did not run). Phases 5s, 5r, 5m, 5h, 5p and 6
+need 5, 7 needs 5 and 6, and 10 needs 8 and 9: a list that names one
+without the other is refused. Phases 8 and 9 generate the genome of phase 5 themselves.
 
 Phases (any failure exits non-zero; no phase's failure is caught):
   0. the card's name, power limit and SM clock; no CUDA device -> error
@@ -137,6 +140,30 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      (v) `torch.cuda.device_count()`, and where it is above 1 `--mesh
      <count>` as (i), the sharded probe as (iii) and the dry run over the
      cards; then `dryrun_multichip` on two shards of cuda:0
+ 5h. several host processes of this machine (`--hosts N`, a
+     torch.distributed TCPStore on 127.0.0.1), each a `python -m
+     mm2tpu_torch.cli` with its kernels' counts printed at its exit:
+     (i) two hosts on cuda:0 map phase 5's reads; the merged PAF
+     byte-identical to phase 5's, only K1 launched, each host's wall,
+     chain.gpu_busy and host 0's merge stage; (ii) the same with -a
+     --align-backend gpu --align-tpu-min-mat 1 on the first 200 reads:
+     the SAM equal to one host's, @PG aside, only K1 and K3 launched;
+     (iii) two hosts each splitting its buckets over two shards of
+     cuda:0 (`cli.main(..., mesh=)` in the child): the PAF byte-identical
+     to phase 5's, K1a and K7 launched, and with four cards or more
+     `--mesh 2` a host on CUDA_VISIBLE_DEVICES 0,1 and 2,3; (v) two hosts
+     with --seed-backend gpu on the first 200 reads: phase 5's lines of
+     them, K5, K6 and K1 launched; (iv), beside the others: three hosts
+     on 30 reads with --host-timeout 15, one stopped by SIGSTOP right
+     after its spawn: both survivors exit non-zero and no merged output
+     exists
+ 5p. the mappy-compatible API on the card: `mm2tpu_torch.mappy.Aligner(
+     genome, preset="map-ont")` (device cuda, its default) maps phase 5's
+     first 100 reads at the default routing and with chain_backend "gpu"
+     (every task one K1 launch at B = 1): every hit's coordinates,
+     strand, mlen, blen, mapq, tp, cg and NM equal to the rows of a
+     `--map-mode stream -c` CLI run of the same reads, with route.gpu,
+     route.host and K1's launches
   6. the map-ont SAM path: the same reads with `-a --align-backend gpu
      --align-tpu-min-mat 1`, every extension fill on K3 (the flushes'
      serial rows ext.d2_rows, the wide fills ext.d2_wide, K3's card time
@@ -170,7 +197,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      tensors: their SAM records must be byte-identical to K4's
  11. no module of jax or of the JAX package loaded; a JSON line per
      kernel (times, launches, bound, stream-mode launches and, from 5r,
-     B = 1 times), the card's name and power limit,
+     B = 1 times; the launches of 5h's hosts and of 5p's second pass),
+     the card's name and power limit,
      then {"ok": true, "device": {...}} last
 
 Everything runs through `mm2tpu_torch`; the script imports nothing of
@@ -183,12 +211,15 @@ from __future__ import annotations
 
 import argparse
 import functools
+import glob
 import importlib.util
 import json
 import os
+import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -2700,6 +2731,401 @@ def phase_v2_parity(tmp, ref, sr, tx):
                 wall))
 
 
+# phase 5h: the multi-host runs, host processes of this machine joined by
+# a torch.distributed.TCPStore on 127.0.0.1, every host on cuda:0 (or,
+# under CUDA_VISIBLE_DEVICES, on its own cards). (ii) and (v) map the
+# first HOSTS_SUB_READS reads; (iv) stops one of three hosts on the first
+# HOSTS_STOP_READS reads under --host-timeout HOSTS_STOP_TIMEOUT
+HOSTS_SUB_READS = 200
+HOSTS_STOP_READS, HOSTS_STOP_TIMEOUT = 30, 15
+# a host process: `python -m mm2tpu_torch.cli ARGV` (with SHARDS > 0,
+# `cli.main(ARGV, mesh=make_mesh(SHARDS, devices=["cuda:0"] * SHARDS))`)
+# with every kernel's launch and plain-version count set to 0 just before
+# the run; it prints them as a HOST_COUNTS line as it exits
+HOST_CHILD = r"""
+import atexit, json, runpy, sys
+from mm2tpu_torch.ops import (chain_packed, chain_v2, chain_v3, ksw2_extd2,
+                              ksw2_exts2, seed_device)
+from mm2tpu_torch.parallel import mesh
+mods = {"chain_v3": chain_v3, "chain_v2": chain_v2,
+        "ksw2_extd2": ksw2_extd2, "ksw2_exts2": ksw2_exts2}
+for m in mods.values():
+    m.launches = m.reference_calls = 0
+seed_device.reset_counts()
+chain_packed.launches8 = mesh.launches = 0
+def counts():
+    c = {k: [m.launches, m.reference_calls] for k, m in mods.items()}
+    for k in ("probe", "build"):
+        c["seed_" + k] = [seed_device.launches[k],
+                          seed_device.reference_calls[k]]
+    c["chain_packed8"] = [chain_packed.launches8, 0]
+    c["mesh_chain_step8"] = [mesh.launches, 0]
+    print("HOST_COUNTS " + json.dumps(c), flush=True)
+atexit.register(counts)
+argv, shards = json.loads(sys.argv[1]), int(sys.argv[2])
+if shards:
+    from mm2tpu_torch.cli import main
+    from mm2tpu_torch.parallel.mesh import make_mesh
+    sys.exit(main(argv, mesh=make_mesh(shards, devices=["cuda:0"] * shards)))
+sys.argv = ["mm2tpu_torch.cli", *argv]
+runpy.run_module("mm2tpu_torch.cli", run_name="__main__", alter_sys=True)
+"""
+
+
+def free_port():
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def start_hosts(tmp, tag, n, argv, shards=0, envs=None, timeout_s=300):
+    """n host processes of one `--hosts n` run of `argv`, with --profile:
+    (processes, their stderr paths, their start time)."""
+    coord = "127.0.0.1:%d" % free_port()
+    procs, errs = [], []
+    t0 = time.perf_counter()
+    for h in range(n):
+        full = [*argv, "--hosts", str(n), "--host-id", str(h),
+                "--coordinator", coord, "--host-timeout", str(timeout_s),
+                "--profile"]
+        env = dict(os.environ, **(envs[h] if envs else {}))
+        errs.append(os.path.join(tmp, "host_%s_%d.err" % (tag, h)))
+        with open(errs[-1], "w") as err:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", HOST_CHILD, json.dumps(full),
+                 str(shards)], cwd=str(REPO), env=env, stderr=err,
+                stdout=subprocess.PIPE, text=True))
+    return procs, errs, t0
+
+
+def prof_lines(path):
+    """(stage seconds, counters) from the [PROF] table of a host's
+    stderr."""
+    stages, counters = {}, {}
+    with open(path) as fh:
+        for ln in fh:
+            f = ln.split()
+            if not ln.startswith("[PROF] ") or f[1] in ("stage", "SUM"):
+                continue
+            if len(f) == 5:
+                stages[f[1]] = int(f[3]) * float(f[4]) / 1e3
+            elif len(f) == 3:
+                counters[f[1]] = int(float(f[2]))
+    return stages, counters
+
+
+def finish_hosts(what, procs, errs, t0, timeout=600):
+    """Wait for the hosts of one run; each must exit 0. Returns, a host,
+    (wall s, {kernel: (launches, plain calls)}, stages, counters)."""
+    walls = [None] * len(procs)
+    outs = [None] * len(procs)
+    deadline = time.monotonic() + timeout
+    while None in walls:
+        for h, p in enumerate(procs):
+            if walls[h] is None and p.poll() is not None:
+                walls[h] = time.perf_counter() - t0
+                outs[h] = p.stdout.read()
+        if time.monotonic() > deadline:
+            for p in procs:
+                p.kill()
+            raise AssertionError("5h %s: hosts still running after %d s"
+                                 % (what, timeout))
+        time.sleep(0.05)
+    res = []
+    for h, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(errs[h]) as fh:
+                tail = fh.read()[-3000:]
+            raise AssertionError("5h %s: host %d exited %d: %s"
+                                 % (what, h, p.returncode, tail))
+        line = [ln for ln in outs[h].splitlines()
+                if ln.startswith("HOST_COUNTS ")][-1]
+        counts = {k: tuple(v) for k, v in
+                  json.loads(line.split(" ", 1)[1]).items()}
+        res.append((walls[h], counts, *prof_lines(errs[h])))
+    return res
+
+
+def hosts_line(what, res):
+    """Each host's wall, chain.gpu_busy and launches; host 0's merge."""
+    parts = []
+    for h, (wall, counts, stages, counters) in enumerate(res):
+        parts.append("host %d: wall %.3f s, chain.gpu_busy %.3f s, %s" % (
+            h, wall, stages.get("chain.gpu_busy", 0.0), ", ".join(
+                "%s %d" % (k, c[0]) for k, c in sorted(counts.items())
+                if c[0])))
+    return "%s: %s; host 0's merge stage %.6f s" % (
+        what, "; ".join(parts), res[0][2].get("merge", float("nan")))
+
+
+def hosts_only(what, res, *on):
+    """On every host exactly the kernels `on` launched, no plain version."""
+    for h, (_, counts, _, _) in enumerate(res):
+        for k, (launches, plain) in counts.items():
+            if plain or (launches > 0) != (k in on):
+                raise AssertionError("5h %s, host %d: launches/plain-version "
+                                     "calls %s" % (what, h, counts))
+
+
+def add_launches(total, res):
+    for _, counts, _, _ in res:
+        for k, (launches, _) in counts.items():
+            total[k] = total.get(k, 0) + launches
+
+
+def phase_hosts(tmp, ref, reads, lines):
+    """Phase 5h: (i) two hosts on phase 5's reads, (ii) two hosts with -a
+    through K3 on the first reads, (iii) two hosts each with a mesh of
+    two shards of cuda:0 (and on four cards, --mesh 2 a host on cards of
+    its own), (iv) a stopped host of three, (v) two hosts with
+    --seed-backend gpu on the first reads. Returns each kernel's launches
+    in the runs (i), (ii), (iii) and (v), summed over their hosts."""
+    launches = {}
+    names = [name for name, _ in read_fasta(reads)]
+    sub = os.path.join(tmp, "hosts_sub.fa")
+    write_reads(sub, read_fasta(reads)[:HOSTS_SUB_READS])
+    stop_reads = os.path.join(tmp, "hosts_stop.fa")
+    write_reads(stop_reads, read_fasta(reads)[:HOSTS_STOP_READS])
+    # (iv) runs beside (i)-(iii): its survivors wait for its timeout
+    stop_out = os.path.join(tmp, "hosts_stop.paf")
+    stop = start_hosts(tmp, "iv", 3, ["-x", "map-ont", "--device", DEVICE,
+                                      "-o", stop_out, ref, stop_reads],
+                       timeout_s=HOSTS_STOP_TIMEOUT)
+    time.sleep(0.5)
+    stop[0][2].send_signal(signal.SIGSTOP)
+    t_stop = time.perf_counter()
+    ended = {}
+
+    def watch(h):
+        ended[h] = (stop[0][h].wait(), time.perf_counter() - t_stop)
+
+    watchers = [threading.Thread(target=watch, args=(h,), daemon=True)
+                for h in range(2)]
+    for t in watchers:
+        t.start()
+
+    # (i) phase 5's reads over two hosts, both on cuda:0
+    paf = os.path.join(tmp, "hosts_i.paf")
+    res = finish_hosts("(i)", *start_hosts(
+        tmp, "i", 2, ["-x", "map-ont", "--device", DEVICE, "-o", paf, ref,
+                      reads]))
+    hosts_only("(i)", res, "chain_v3")
+    with open(paf) as fh:
+        if fh.read().splitlines() != lines:
+            raise AssertionError("5h (i): the merged PAF differs from "
+                                 "phase 5's")
+    if glob.glob(paf + ".host*.part"):
+        raise AssertionError("5h (i): part files left behind")
+    add_launches(launches, res)
+    say("5h", "(i) -x map-ont --hosts 2, both on cuda:0, %d reads: merged "
+        "PAF (%d lines) byte-identical to phase 5's, no part file left "
+        "(phase 5: wall %.3f s, chain.gpu_busy %.3f s)" % (
+            len(names), len(lines), PH5["wall"],
+            PH5["stages"].get("chain.gpu_busy", (0.0,))[0]))
+    say("5h", hosts_line("(i)", res))
+
+    # (ii) SAM through K3 on the first reads, against one host
+    sam = os.path.join(tmp, "hosts_ii.sam")
+    one = os.path.join(tmp, "hosts_ii_one.sam")
+    sam_args = ["-x", "map-ont", "-a", "--align-backend", "gpu",
+                "--align-tpu-min-mat", "1", "--device", DEVICE]
+    started = start_hosts(tmp, "ii", 2, [*sam_args, "-o", sam, ref, sub])
+    # the single host runs here while the two host processes start
+    wall1, counts1, _, _ = drive([*sam_args, "-o", one, ref, sub])
+    only("5h", "(ii) one host", counts1, "chain_v3", "ksw2_extd2")
+    res = finish_hosts("(ii)", *started)
+    hosts_only("(ii)", res, "chain_v3", "ksw2_extd2")
+    with open(sam) as fh, open(one) as fo:
+        got, want = strip_pg(fh.read()), strip_pg(fo.read())
+    if got != want:
+        raise AssertionError("5h (ii): the merged SAM differs from one "
+                             "host's")
+    add_launches(launches, res)
+    say("5h", "(ii) -a --align-backend gpu --hosts 2 on the first %d reads: "
+        "merged SAM (%d records) byte-identical to one host's without @PG "
+        "(one host, in this process beside the hosts' start: wall %.3f s)"
+        % (HOSTS_SUB_READS,
+                                     len(sam_records(got)), wall1))
+    say("5h", hosts_line("(ii)", res))
+
+    # (iii) a mesh of two shards of cuda:0 in each host, and beside it (v)
+    # device seeding in each host of another run, on the first reads
+    paf = os.path.join(tmp, "hosts_iii.paf")
+    started = start_hosts(tmp, "iii", 2, ["-x", "map-ont", "--device",
+                                          DEVICE, "-o", paf, ref, reads],
+                          shards=2)
+    paf_v = os.path.join(tmp, "hosts_v.paf")
+    started_v = start_hosts(tmp, "v", 2, ["-x", "map-ont", "--seed-backend",
+                                          "gpu", "--device", DEVICE, "-o",
+                                          paf_v, ref, sub])
+    res = finish_hosts("(iii)", *started)
+    hosts_only("(iii)", res, "chain_v3", "chain_packed8", "mesh_chain_step8")
+    with open(paf) as fh:
+        if fh.read().splitlines() != lines:
+            raise AssertionError("5h (iii): the merged PAF differs from "
+                                 "phase 5's")
+    add_launches(launches, res)
+    say("5h", "(iii) --hosts 2, each host's buckets over two shards of "
+        "cuda:0 (beside (v)'s hosts): merged PAF byte-identical to phase "
+        "5's")
+    say("5h", hosts_line("(iii)", res))
+    if torch.cuda.device_count() >= 4:
+        paf = os.path.join(tmp, "hosts_iii4.paf")
+        res = finish_hosts("(iii) four cards", *start_hosts(
+            tmp, "iii4", 2, ["-x", "map-ont", "--mesh", "2", "--device",
+                             DEVICE, "-o", paf, ref, reads],
+            envs=[{"CUDA_VISIBLE_DEVICES": "0,1"},
+                  {"CUDA_VISIBLE_DEVICES": "2,3"}]))
+        hosts_only("(iii) four cards", res, "chain_v3", "chain_packed8",
+                   "mesh_chain_step8")
+        with open(paf) as fh:
+            if fh.read().splitlines() != lines:
+                raise AssertionError("5h (iii): the merged PAF of --mesh 2 "
+                                     "on cards 0,1 and 2,3 differs")
+        say("5h", "(iii) --hosts 2 --mesh 2 on CUDA_VISIBLE_DEVICES 0,1 and "
+            "2,3: merged PAF byte-identical to phase 5's")
+        say("5h", hosts_line("(iii) four cards", res))
+    else:
+        say("5h", "(iii) torch.cuda.device_count() = %d: --mesh 2 a host on "
+            "cards of its own (0,1 and 2,3) not run" %
+            torch.cuda.device_count())
+
+    res = finish_hosts("(v)", *started_v)
+    hosts_only("(v)", res, "chain_v3", "seed_probe", "seed_build")
+    first = set(names[:HOSTS_SUB_READS])
+    with open(paf_v) as fh:
+        if fh.read().splitlines() != [ln for ln in lines
+                                      if ln.split("\t", 1)[0] in first]:
+            raise AssertionError("5h (v): the merged device-seeded PAF "
+                                 "differs from phase 5's lines of its reads")
+    add_launches(launches, res)
+    say("5h", "(v) --seed-backend gpu --hosts 2 on the first %d reads "
+        "(beside (iii)'s hosts): merged PAF byte-identical to phase 5's "
+        "lines of them" %
+        HOSTS_SUB_READS)
+    say("5h", hosts_line("(v)", res))
+
+    # (iv) the stopped host
+    procs, errs, _ = stop
+    for t in watchers:
+        t.join(HOSTS_STOP_TIMEOUT + 300)
+    procs[2].kill()
+    procs[2].wait(timeout=60)
+    for p in procs:
+        p.stdout.close()
+    if len(ended) < 2:
+        raise AssertionError("5h (iv): a survivor still runs %d s after "
+                             "the stop" % (HOSTS_STOP_TIMEOUT + 300))
+    rcs = [ended[h][0] for h in range(2)]
+    if any(rc == 0 for rc in rcs) or os.path.exists(stop_out):
+        raise AssertionError("5h (iv): survivors exited %s, merged output "
+                             "%s" % (rcs, "left behind" if os.path.exists(
+                                 stop_out) else "absent"))
+    errors = []
+    for e in errs[:2]:
+        with open(e) as fh:
+            errors += [ln.strip()[:160] for ln in fh
+                       if ln.startswith("[ERROR]")]
+    say("5h", "(iv) 3 hosts on %d reads, --host-timeout %d, host 2 stopped "
+        "(SIGSTOP) 0.5 s after its spawn, beside (i)-(iii) and (v): both "
+        "survivors exited non-zero (%s), %.3f and %.3f s after the stop, "
+        "and no merged output exists: %s" % (
+            HOSTS_STOP_READS, HOSTS_STOP_TIMEOUT, rcs, ended[0][1],
+            ended[1][1], " | ".join(errors)))
+    return launches
+
+
+# phase 5p: the reads the API maps
+API_READS = 100
+
+
+def hit_fields(name, h):
+    """The fields of a PAF -c row that an Alignment exposes."""
+    return (name, h.q_st, h.q_en, "+" if h.strand > 0 else "-", h.ctg,
+            h.ctg_len, h.r_st, h.r_en, h.mlen, h.blen, h.mapq,
+            "P" if h.is_primary else "S", h.cigar_str, h.NM)
+
+
+def paf_fields(ln):
+    c = ln.split("\t")
+    tags = {t[:2]: t[5:] for t in c[12:]}
+    return (c[0], int(c[2]), int(c[3]), c[4], c[5], int(c[6]), int(c[7]),
+            int(c[8]), int(c[9]), int(c[10]), int(c[11]), tags["tp"],
+            tags["cg"], int(tags["NM"]))
+
+
+def phase_api(tmp, ref, reads):
+    """Phase 5p: `mm2tpu_torch.mappy.Aligner(ref, preset="map-ont")` on
+    its default device (cuda) maps the first API_READS reads at the
+    default routing and with every task on K1 (chain_backend "gpu"); every
+    hit's fields equal the rows of a `--map-mode stream -c` CLI run of the
+    same reads. Returns K1's launches in the second pass."""
+    from mm2tpu_torch import mappy
+    from mm2tpu_torch.ops import seed_device as sd
+    from mm2tpu_torch.utils import profiling
+    recs = read_fasta(reads)[:API_READS]
+    sub = os.path.join(tmp, "api_reads.fa")
+    write_reads(sub, recs)
+    paf = os.path.join(tmp, "api_stream_c.paf")
+    cli_wall, _, _, _ = drive(["-x", "map-ont", "--map-mode", "stream", "-c",
+                               "--device", DEVICE, "-o", paf, ref, sub])
+    with open(paf) as fh:
+        want = [paf_fields(ln) for ln in fh.read().splitlines()]
+    t0 = time.perf_counter()
+    aligner = mappy.Aligner(ref, preset="map-ont")
+    build = time.perf_counter() - t0
+    if not aligner or aligner._device.type != "cuda":
+        raise AssertionError("5p: Aligner(ref) holds no index or is not on "
+                             "cuda (%s)" % aligner._device)
+    k1 = None
+    for what, backend in (("default routing", None),
+                          ("chain_backend gpu", "gpu")):
+        if backend:
+            aligner.map_opt.chain_backend = backend
+        mods = chain_counts()
+        for m in mods.values():
+            m.launches = m.reference_calls = 0
+        sd.reset_counts()
+        profiling.enable()
+        t0 = time.perf_counter()
+        got = [hit_fields(name, h) for name, seq in recs
+               for h in aligner.map(seq)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: (m.launches, m.reference_calls) for k, m in mods.items()}
+        counts.update({"seed_" + k: (sd.launches[k], sd.reference_calls[k])
+                       for k in ("probe", "build")})
+        counters = dict(profiling.counters)
+        profiling.disable()
+        if got != want:
+            bad = sorted({g[0] for g in got} ^ {w[0] for w in want} |
+                         {g[0] for g in got if g not in want})
+            raise AssertionError("5p %s: the hits differ from the CLI's -c "
+                                 "rows on reads %s" % (what, bad[:10]))
+        if backend:
+            only("5p", "(%s)" % what, counts, "chain_v3")
+            k1 = counts["chain_v3"][0]
+            if k1 != counters.get("chain.launches") or \
+                    counters.get("route.host"):
+                raise AssertionError("5p %s: K1 launches %d, counters %s"
+                                     % (what, k1, counters))
+        else:
+            only("5p", "(%s)" % what, counts,
+                 *(["chain_v3"] if counts["chain_v3"][0] else []))
+        say("5p", "Aligner.map, %s, %d reads: %d hits, every field (coords, "
+            "strand, mlen, blen, mapq, tp, cg, NM) equal to the CLI's "
+            "--map-mode stream -c rows; route.gpu %d, route.host %d, K1 "
+            "launches %d; %.3f s (the CLI run: %.3f s with its index "
+            "build; the Aligner's index: %.3f s)" % (
+                what, len(recs), len(got), counters.get("route.gpu", 0),
+                counters.get("route.host", 0), counts["chain_v3"][0], wall,
+                cli_wall, build))
+    return k1
+
+
 def kernel_line(name, source, replaces, launches, max_err, times, work,
                 clock):
     bound_ms, bound_by = bound(*work, clock)
@@ -2712,13 +3138,14 @@ def kernel_line(name, source, replaces, launches, max_err, times, work,
             "library_ms": None}
 
 
-PHASES = ("1", "2", "3", "3b", "4", "5", "5s", "5r", "5m", "6", "7", "8",
-          "9", "10")
+PHASES = ("1", "2", "3", "3b", "4", "5", "5s", "5r", "5m", "5h", "5p", "6",
+          "7", "8", "9", "10")
 # the deep parity runs (paths mapped again through the plain versions):
 # run with --deep or when named in --phases
 DEEP = ("7", "10")
 # phases that take another phase's outputs
-NEEDS = {"5s": ("5",), "5r": ("5",), "5m": ("5",), "6": ("5",),
+NEEDS = {"5s": ("5",), "5r": ("5",), "5m": ("5",), "5h": ("5",),
+         "5p": ("5",), "6": ("5",),
          "7": ("5", "6"),
          "10": ("8", "9")}
 
@@ -2763,6 +3190,7 @@ def main(argv=None) -> int:
     k4 = phase_exts2_kernel_vs_plain() if "3b" in run else None
     k2 = phase_v2_kernel_vs_plain() if "4" in run else None
     launches = ext_launches = sr = tx = seed = stream = mesh = None
+    hosts = api = None
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         if "5" in run:
             ref, reads, lines, launches, ph5 = phase_main_path(tmp)
@@ -2779,6 +3207,10 @@ def main(argv=None) -> int:
         if "5m" in run:
             mesh_launches = phase_mesh_path(tmp, ref, reads, lines, ph5)
             mesh = phase_mesh_kernels(ref, reads, clock)
+        if "5h" in run:
+            hosts = phase_hosts(tmp, ref, reads, lines)
+        if "5p" in run:
+            api = {"chain_v3": phase_api(tmp, ref, reads)}
         if "6" in run:
             sam, ext_launches = phase_sam(tmp, ref, reads)
         if "7" in run:
@@ -2869,6 +3301,12 @@ def main(argv=None) -> int:
             lines.append(kernel_line(name, source, replaces, n, err,
                                      (ms, plain_ms), work, clock))
     for line in lines:
+        # launches in phase 5h's host processes (summed over the hosts of
+        # its runs (i)-(iii) and (v)) and in phase 5p's second pass
+        line["hosts_launches"] = None if hosts is None else \
+            hosts.get(line["name"], 0)
+        line["api_launches"] = None if api is None else \
+            api.get(line["name"], 0)
         # launches in phase 5r's stream runs: K1 in (ii), K2, K3 and K4 in
         # (v); the stream mode seeds on the host
         line["stream_launches"] = None if stream is None else \

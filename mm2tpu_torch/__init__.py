@@ -30,6 +30,10 @@ Layer map (counterpart in `mm2tpu` in brackets):
   csrc/ksw2_extd2.cu   the Hopper extension kernel with [_extd2_kernel,
                        its traceback                     trace_device]
   device.py            explicit cpu/cuda device choice
+  parallel/multihost.py  --hosts: a TCPStore rendezvous, [parallel/multihost.py]
+                       barriers, the ordered merge
+  mappy.py             the mappy-compatible Python API  [mappy.py]
+                       (Aligner(..., device="cuda"))
   options.py, index/, io/, mapping/{hit,seed,sdust,esterr,seg,pe,align,
   chain}.py, ops/{chain_ref,ksw2_ref,ksw2_splice_ref}.py, utils/,
   native/              the copied host path             [same paths]

@@ -17,7 +17,10 @@ host DP), on a pool of `-t` threads whose results are emitted in input
 order. `--split-prefix` works in both modes. `--mesh N` (batch mode)
 splits each bucket's rows over N shards: the cards cuda:0 .. N-1 with
 `--device cuda` (fewer visible cards is an error, where the JAX package
-quietly takes fewer), N CPU shards with `--device cpu`. Usage:
+quietly takes fewer), N CPU shards with `--device cpu`. `--hosts N`
+runs N host processes, each mapping every N-th fragment and joined by a
+`torch.distributed.TCPStore` at `--coordinator` (`parallel/multihost.py`);
+host 0 merges their stripes into `-o OUTPUT`. Usage:
 
     python -m mm2tpu_torch.cli -x map-ont [--device cuda] ref.fa reads.fa
     python -m mm2tpu_torch.cli -x map-ont --map-mode stream \
@@ -32,11 +35,14 @@ quietly takes fewer), N CPU shards with `--device cpu`. Usage:
         ref.fa reads.fa
     python -m mm2tpu_torch.cli -x map-ont --mesh N [--device cuda] ref.fa \
         reads.fa
+    python -m mm2tpu_torch.cli -x map-ont --hosts N --host-id I \
+        --coordinator ADDR:PORT -o out.paf [--device cuda] ref.fa reads.fa
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import io as io_mod
 import os
 import sys
 from typing import List, Optional
@@ -60,6 +66,7 @@ from .options import (set_opt, mapopt_update, check_opt, MapOptions, IdxOptions,
                       MM_F_SPLICE, MM_F_SPLICE_FOR, MM_F_SPLICE_REV,
                       MM_F_HARD_MLEVEL, MM_F_NO_END_FLT, MM_F_INDEPEND_SEG,
                       MM_F_LONG_CIGAR, MM_F_NO_QUAL, MM_F_HEAP_SORT)
+from .parallel import multihost
 from .parallel.mesh import make_mesh
 from .utils import profiling, timing
 
@@ -563,8 +570,6 @@ def emit(mi, mo: MapOptions, frag, res, out) -> None:
 
 def _unsupported(args, mo: MapOptions) -> Optional[str]:
     """What this slice of the port does not run, by ROADMAP item."""
-    if args.hosts:
-        return "--hosts (multi-host, ROADMAP M9)"
     if args.seed_backend == "tpu":
         return ("--seed-backend tpu (the JAX package's device seeding; the "
                 "port's is --seed-backend gpu)")
@@ -607,6 +612,14 @@ def build_torch_parser():
                 "--map-mode batch): the cards cuda:0..N-1 with --device "
                 "cuda (fewer visible cards is an error), N CPU shards with "
                 "--device cpu")
+    act = next(a for a in p._actions if a.dest == "hosts")
+    act.help = ("multi-host data parallelism: total number of host "
+                "processes, joined by a torch.distributed.TCPStore; host h "
+                "maps every fragment i with i %% N == h and host 0 merges "
+                "the stripes into -o OUTPUT, which must lie on a "
+                "filesystem every host sees")
+    act = next(a for a in p._actions if a.dest == "coordinator")
+    act.help = "host 0's address: it serves the torch.distributed TCPStore"
     act = next(a for a in p._actions if a.dest == "map_mode")
     act.help = ("batch = one chaining launch per size bucket of reads; "
                 "stream = each read on its own, each chaining task placed "
@@ -672,6 +685,23 @@ def _main(argv, chain_fn, ext_fn, exts2_fn, seed_fn, mesh) -> int:
         print("[ERROR] mm2tpu_torch does not support %s yet" % why,
               file=sys.stderr)
         return 1
+    hostcfg = multihost.HostConfig(args.hosts or 1, args.host_id,
+                                   args.coordinator,
+                                   timeout_s=args.host_timeout)
+    if hostcfg.active:   # as mm2tpu.cli.main, in the same words
+        if not (0 <= hostcfg.host_id < hostcfg.n_hosts) or \
+                not hostcfg.coordinator:
+            print("[ERROR] --hosts needs --coordinator and a valid "
+                  "--host-id", file=sys.stderr)
+            return 1
+        if not args.output or args.output == "-":
+            print("[ERROR] --hosts requires -o OUTPUT (host 0 merges the "
+                  "per-host stripes there)", file=sys.stderr)
+            return 1
+        if mo.split_prefix:
+            print("[ERROR] --hosts with --split-prefix is not supported",
+                  file=sys.stderr)
+            return 1
     if args.mesh or mesh is not None:
         args.map_mode = "batch"   # as in mm2tpu.cli: --mesh is batch mode
     if args.map_mode == "stream":
@@ -699,15 +729,33 @@ def _main(argv, chain_fn, ext_fn, exts2_fn, seed_fn, mesh) -> int:
     except RuntimeError as e:
         print("[ERROR] %s" % e, file=sys.stderr)
         return 1
+    # the rendezvous comes after the device check (a host without its
+    # card never joins a run) and before the output is opened
+    try:
+        coord = multihost.init_distributed(hostcfg)
+    except RuntimeError as e:
+        print("[ERROR] multi-host rendezvous failed on host %d: %s"
+              % (hostcfg.host_id, e), file=sys.stderr)
+        return 1
 
-    out = open(args.output, "w") if args.output and args.output != "-" \
-        else sys.stdout
+    # only host 0 writes -o; the others' headers go nowhere
+    if coord is not None and coord.host_id != 0:
+        out = io_mod.StringIO()
+    elif args.output and args.output != "-":
+        out = open(args.output, "w")
+    else:
+        out = sys.stdout
+    rc = 1
     try:
         rc = _run(args, argv, io, mo, device, out, chain_fn, ext_fn,
-                  exts2_fn, seed_fn, mesh)
+                  exts2_fn, seed_fn, mesh, coord)
     finally:
         if out is not sys.stdout:
             out.close()
+        if coord is not None and coord.host_id == 0 and rc != 0:
+            # a failed multi-host run leaves no merged output behind
+            with contextlib.suppress(OSError):
+                os.remove(args.output)
     if rc == 0:
         if costmodel.is_cuda(device):
             costmodel.raise_probe_error()
@@ -718,7 +766,7 @@ def _main(argv, chain_fn, ext_fn, exts2_fn, seed_fn, mesh) -> int:
 
 
 def _run(args, argv, io, mo: MapOptions, device, out, chain_fn,
-         ext_fn, exts2_fn, seed_fn, mesh=None) -> int:
+         ext_fn, exts2_fn, seed_fn, mesh=None, coord=None) -> int:
     parts = index_parts(args.target, io, n_threads=args.t)
     with profiling.stage("index"):
         mi = next(parts, None)
@@ -779,11 +827,17 @@ def _run(args, argv, io, mo: MapOptions, device, out, chain_fn,
                         n_alt += 1
             mi.n_alt = n_alt
         if args.query:
+            if coord is not None and not last:
+                print("[ERROR] --hosts with a multi-part index is not "
+                      "supported (use a single-part index per host)",
+                      file=sys.stderr)
+                return 1
             mapopt_update(mo, mi)
             n_mapped = map_all(args.query, mi, mo, out, device, chain_fn,
                                ext_fn, exts2_fn, seed_fn, part_idx=n_parts,
                                n_threads=max(1, args.t),
-                               map_mode=args.map_mode, mesh=mesh)
+                               map_mode=args.map_mode, mesh=mesh,
+                               coord=coord, out_path=args.output)
             timing.log("worker_pipeline", "mapped %d sequences" % n_mapped)
         n_parts += 1
         mi = nxt
@@ -885,7 +939,8 @@ def map_one_frag(mi, mo: MapOptions, frag, device):
 def map_all(query_paths, mi, mo: MapOptions, out, device,
             chain_fn=None, ext_fn=None, exts2_fn=None, seed_fn=None, *,
             part_idx: int = 0, n_threads: int = 1,
-            map_mode: str = "batch", mesh=None) -> int:
+            map_mode: str = "batch", mesh=None, coord=None,
+            out_path=None) -> int:
     """Map every query mini-batch against one index part and emit in
     input order, or with --split-prefix dump the part's raw hits to its
     temporary file (mm2tpu.cli._map_all, map.c:571-585, mm_split_init).
@@ -898,7 +953,14 @@ def map_all(query_paths, mi, mo: MapOptions, out, device,
     thread, whose results are consumed in submission order (the
     reference's 3-step kt_pipeline, map.c:526-621). With
     `--align-backend gpu` and `--profile`, the fills left on the host's
-    native extension are counted as `ext.host_fills`."""
+    native extension are counted as `ext.host_fills`.
+
+    With a `coord` (`parallel.multihost.Coordinator`, `--hosts`), both
+    map modes map only this host's stripe of the fragments (index %
+    n_hosts == host_id) and write each fragment's output, empty or not,
+    as one record of its part file of `out_path`; after the `map_done`
+    barrier host 0 merges the parts into `out` (mm2tpu.cli._map_all). A
+    failure there exits 1."""
     import pickle
     import queue as queue_mod
     import threading
@@ -913,6 +975,8 @@ def map_all(query_paths, mi, mo: MapOptions, out, device,
     reader = FastxReader(query_paths, mo.mini_batch_size,
                          bool(mo.flag & MM_F_FRAG_MODE))
     n_mapped = 0
+    part_writer = multihost.PartWriter(out_path, coord.host_id) \
+        if coord is not None else None
 
     def consume(frag, res):
         nonlocal n_mapped
@@ -921,12 +985,32 @@ def map_all(query_paths, mi, mo: MapOptions, out, device,
             for j in range(len(frag)):
                 dump["reads"].append(
                     (res.regs[j], res.rep_len, res.frag_gap))
+        elif part_writer is not None:
+            # one record a fragment, an unmapped one's empty, to keep the
+            # round-robin merge aligned
+            buf = io_mod.StringIO()
+            with profiling.stage("emit"):
+                emit(mi, mo, frag, res, buf)
+            part_writer.write(buf.getvalue())
         else:
             with profiling.stage("emit"):
                 emit(mi, mo, frag, res, out)
 
-    if map_mode == "batch":
+    def batches():
+        """The mini-batches, or with --hosts this host's stripe of them."""
+        if coord is None:
+            yield from reader.batches()
+            return
+        idx = 0
         for batch in reader.batches():
+            mine = [frag for j, frag in enumerate(batch)
+                    if (idx + j) % coord.n_hosts == coord.host_id]
+            idx += len(batch)
+            if mine:
+                yield mine
+
+    if map_mode == "batch":
+        for batch in batches():
             map_batch(mi, mo, batch, consume, device, chain_fn, ext_fn,
                       exts2_fn, seed_fn, mesh)
     else:
@@ -943,24 +1027,24 @@ def map_all(query_paths, mi, mo: MapOptions, out, device,
 
         with counted:
             if n_threads <= 1:
-                for batch in reader.batches():
+                for batch in batches():
                     for frag in batch:
                         consume(frag, one(frag))
             else:
-                batches: queue_mod.Queue = queue_mod.Queue(maxsize=2)
+                queue: queue_mod.Queue = queue_mod.Queue(maxsize=2)
 
                 def produce():
                     try:
-                        for batch in reader.batches():
-                            batches.put(batch)
-                        batches.put(None)
+                        for batch in batches():
+                            queue.put(batch)
+                        queue.put(None)
                     except BaseException as e:  # surface reader errors
-                        batches.put(e)
+                        queue.put(e)
 
                 threading.Thread(target=produce, daemon=True).start()
                 with ThreadPoolExecutor(n_threads) as ex:
                     while True:
-                        batch = batches.get()
+                        batch = queue.get()
                         if batch is None:
                             break
                         if isinstance(batch, BaseException):
@@ -970,6 +1054,24 @@ def map_all(query_paths, mi, mo: MapOptions, out, device,
     if dump is not None:
         with open(f"{mo.split_prefix}.{part_idx:04d}.tmp", "wb") as f:
             pickle.dump(dump, f)
+    if coord is not None:
+        part_writer.close()
+        try:
+            coord.barrier("map_done")
+            if coord.host_id == 0:
+                with profiling.stage("merge"):
+                    multihost.merge_parts(out_path, coord.n_hosts, out)
+                out.flush()
+            coord.barrier("merge_done")
+            coord.finish()
+        except Exception as e:
+            # a peer stopped or died, or the shared filesystem lost a
+            # part: never a partial merged output (_main removes it)
+            print("[ERROR] multi-host run failed on host %d: %s"
+                  % (coord.host_id, e), file=sys.stderr)
+            raise SystemExit(1)
+        if coord.host_id == 0:
+            multihost.cleanup_parts(out_path, coord.n_hosts)
     return n_mapped
 
 

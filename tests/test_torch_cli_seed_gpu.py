@@ -17,11 +17,11 @@ import torch
 
 from mm2tpu.cli import main as jax_main
 from mm2tpu_torch.cli import main as port_main
-from mm2tpu_torch.index.mmi import read_mmi_parts
 from mm2tpu_torch.ops import seed_device as sd
 from mm2tpu_torch.utils import profiling
 from test_torch_cli_sr_splice import load_chip_smoke
 from test_torch_pipeline import REPO, load_make_workload
+from test_torch_stream import rebuild_mt
 
 GOLDEN = REPO / "tests" / "golden"
 
@@ -55,23 +55,11 @@ def inputs(tmp_path_factory):
             mut = rng.random(len(s)) < 0.02
             s[mut] = bases[rng.integers(0, 4, int(mut.sum()))]
             fh.write(">ctg%d\n%s\n" % (i, "".join(s)))
-    orang = d / "MT-orang.fa"
-    for mi in read_mmi_parts(str(GOLDEN / "twopart_MT.mmi")):
-        rid = mi.name2id("MT_orang")
-        if rid >= 0:
-            codes = mi.getseq_fast(rid, 0, mi.seq[rid].length)
-            orang.write_text(">MT_orang\n%s\n" % "".join(
-                np.array(list("ACGTN"))[np.minimum(codes, 4)]))
-    human = d / "MT-human.fa"
-    for ln in (GOLDEN / "mapont_MT_a.sam").read_text().splitlines():
-        f = ln.split("\t")
-        if not ln.startswith("@") and int(f[1]) & 0x900 == 0:
-            human.write_text(">%s\n%s\n" % (f[0], f[9]))
-            break
+    orang, human = rebuild_mt(d)
     return {"wl": (ref, [reads]), "sr": (ref, list(pairs)),
             "splice": (ref, [spliced]),
             "asm": (str(asm_ref), [str(asm_reads)]),
-            "mt": (str(orang), [str(human)]),
+            "mt": (orang, [human]),
             "mt_sr": (str(orang), [str(GOLDEN / "sr_reads_1.fq")]),
             "dir": d}
 

@@ -5,7 +5,7 @@ Both packages run as CLIs on the same files: seeded read pairs and
 spliced reads from a seeded 0.3 Mb genome (the generators of
 chip_smoke.py), and the repository's real short-read pairs
 (tests/golden/sr_reads_{1,2}.fq) against MT_orang, written to a FASTA from
-tests/golden/twopart_MT.mmi by the JAX package's own .mmi reader. The
+tests/golden/twopart_MT.mmi by `test_torch_stream.rebuild_mt`. The
 port chains every pair and every spliced read with its v2-contract plain
 version on the CPU, the JAX package with its Pallas v2 kernel in
 interpret mode."""
@@ -14,7 +14,6 @@ import importlib.util
 import subprocess
 import sys
 
-import numpy as np
 import pytest
 
 from test_torch_pipeline import REPO, load_make_workload
@@ -33,24 +32,18 @@ def load_chip_smoke():
 def inputs(tmp_path_factory):
     """(ref, [r1, r2]) for 40 seeded read pairs, (ref, [reads]) for 12
     seeded spliced reads, and (MT_orang FASTA, [golden r1, r2])."""
-    from mm2tpu.index.mmi import read_mmi_parts
+    from test_torch_stream import rebuild_mt   # it imports this module
     d = tmp_path_factory.mktemp("sr_splice")
     ref, _ = load_make_workload().make(str(d), genome_mb=0.3, n_reads=12,
                                        mean_len=2500, seed=3)
     cs = load_chip_smoke()
     pairs = cs.make_sr_pairs(ref, str(d / "sr"), 40, seed=11)
     spliced = cs.make_spliced_reads(ref, str(d / "tx.fa"), 12, seed=12)
-    mt = d / "MT_orang.fa"
-    for mi in read_mmi_parts(str(REPO / "tests/golden/twopart_MT.mmi")):
-        rid = mi.name2id("MT_orang")
-        if rid >= 0:
-            codes = mi.getseq_fast(rid, 0, mi.seq[rid].length)
-            mt.write_text(">MT_orang\n%s\n" % "".join(
-                np.array(list("ACGTN"))[np.minimum(codes, 4)]))
+    mt, _ = rebuild_mt(d)
     golden = [str(REPO / "tests" / "golden" / ("sr_reads_%d.fq" % k))
               for k in (1, 2)]
     return {"sr": (ref, pairs), "splice": (ref, [spliced]),
-            "mt": (str(mt), golden)}
+            "mt": (mt, golden)}
 
 
 def strip_pg(text):

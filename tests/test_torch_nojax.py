@@ -66,6 +66,8 @@ import mm2tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(mm2tpu_torch.__path__,
                                               "mm2tpu_torch.")]
 assert len(mods) >= 30, mods
+assert {{"mm2tpu_torch.mappy", "mm2tpu_torch.parallel.multihost"}} <= \
+    set(mods), mods
 for m in mods:
     importlib.import_module(m)
 from mm2tpu_torch.cli import main
@@ -210,6 +212,52 @@ assert not bad, bad
     assert out["mesh.paf"].read_text() == one
 
 
+def test_mappy_and_multihost_run_without_jax(workload, tmp_path):
+    """`mm2tpu_torch.mappy` and `mm2tpu_torch.parallel.multihost` in a
+    process that refuses jax and mm2tpu: the API's primary hits are the
+    CLI's `-c` primary lines, and three threads as hosts meet at a store
+    barrier and count out."""
+    ref, reads = workload
+    paf = tmp_path / "c.paf"
+    r = run_python(f"""
+import socket, threading
+from mm2tpu_torch import mappy
+from mm2tpu_torch.cli import main
+from mm2tpu_torch.parallel import multihost as mh
+a = mappy.Aligner({ref!r}, preset="map-ont", device="cpu")
+hits = []
+for name, seq, _ in mappy.fastx_read({reads!r}):
+    hits += ["%s\\t%d\\t%d\\t%s\\t%d\\t%d\\t%s" % (
+        name, h.q_st, h.q_en, h.ctg, h.r_st, h.r_en, h.cigar_str)
+        for h in a.map(seq) if h.is_primary]
+assert main(["-x", "map-ont", "-c", "--device", "cpu", "-o", {str(paf)!r},
+             {ref!r}, {reads!r}]) == 0
+want = []
+for ln in open({str(paf)!r}):
+    c = ln.rstrip("\\n").split("\\t")
+    if "tp:A:P" in c:
+        want.append("\\t".join(c[i] for i in (0, 2, 3, 5, 7, 8)) + "\\t" +
+                    [t[5:] for t in c if t.startswith("cg:Z:")][0])
+assert hits == want and len(hits) >= 12, (hits, want)
+s = socket.socket(); s.bind(("127.0.0.1", 0))
+coord = "127.0.0.1:%d" % s.getsockname()[1]; s.close()
+done = []
+def host(h):
+    c = mh.Coordinator(mh.open_store(mh.HostConfig(3, h, coord, 30)), 3, h,
+                       30)
+    c.barrier("x")
+    c.finish()
+    done.append(h)
+ts = [threading.Thread(target=host, args=(h,)) for h in range(3)]
+[t.start() for t in ts]
+[t.join(60) for t in ts]
+assert sorted(done) == [0, 1, 2], done
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "mm2tpu")]
+assert not bad, bad
+""")
+    assert r.returncode == 0, r.stderr[-3000:]
+
+
 @pytest.mark.parametrize("argv", [
     ["-m", "mm2tpu_torch.cli", "-x", "map-ont", "--device", "cuda",
      "--mesh", "2"],
@@ -293,7 +341,10 @@ def test_resolve_device_is_explicit():
 # the ids are the ones the cases had while `--mesh` was refused too (it
 # runs now: test_mesh_cli_and_dryrun_run_without_jax)
 @pytest.mark.parametrize("flags,item,n_queries", [
-    pytest.param(["--hosts", "2"], "M9", 1, id="flags1-M9-1"),
+    # --hosts runs now (tests/test_torch_multihost.py); without
+    # --coordinator it is refused by mm2tpu.cli's validation, in its words
+    pytest.param(["--hosts", "2"], "--hosts needs --coordinator", 1,
+                 id="flags1-M9-1"),
     # the JAX package's device seeding, refused naming the port's; the id
     # is the one this case had when it expected the M7 refusal
     pytest.param(["--seed-backend", "tpu"], "--seed-backend gpu", 1,
