@@ -6,7 +6,9 @@ kernel) in batch mode, -x map-ont in stream mode (each chaining task
 placed on the host or the card on its own), with --split-prefix,
 -x map-ont over a data-parallel mesh (--mesh) on the 8 B delta wire, in
 several host processes (--hosts) and through the mappy-compatible API
-(mm2tpu_torch.mappy).
+(mm2tpu_torch.mappy); under a torch.profiler trace (--profile-trace), in
+the default map mode (stream), through the entry points and paftools.
+Every run of a batch path names --map-mode batch.
 
 Run from the root of a checkout, with no arguments, for the gate (every
 phase but the deep parity runs, 7 and 10):
@@ -23,11 +25,12 @@ the extd2 kernel, `--phases 1,3,5,6` to add the map-ont SAM path,
 `--phases 1,2,4` for the chaining kernel's K1 and K2, `--phases 1,5,5s`
 for the seeding kernels K5 and K6 and the device-seeded path, `--phases
 1,5,5r` for the stream mode, `--phases 1,5,5m` for the mesh, `--phases
-1,5,5h,5p` for the host processes and the API) to run
+1,5,5h,5p` for the host processes and the API, `--phases 1,5,5t` for
+the trace, the default mode, the entry points and paftools) to run
 phase 0, the named phases and phase 11's import check only; the kernel
 JSON line then lists only the kernels whose phase ran (launches null
-where their path's phase did not run). Phases 5s, 5r, 5m, 5h, 5p and 6
-need 5, 7 needs 5 and 6, and 10 needs 8 and 9: a list that names one
+where their path's phase did not run). Phases 5s, 5r, 5m, 5h, 5p, 5t
+and 6 need 5, 7 needs 5 and 6, and 10 needs 8 and 9: a list that names one
 without the other is refused. Phases 8 and 9 generate the genome of phase 5 themselves.
 
 Phases (any failure exits non-zero; no phase's failure is caught):
@@ -81,10 +84,11 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      the largest shape (with the kernel's us a step); and phase 2's rows
      over the score bound under each contract (the second row in two
      segments where n_segs = 2)
-  5. the map-ont PAF path: `mm2tpu_torch.cli.main -x map-ont --device
-     cuda` on a seeded 48 Mb genome with 1000 ONT-like reads; >= 95% of
-     the reads must map, and only K1 may have chained (its launches,
-     anchors, padded anchors and card time from the chain.* counters)
+  5. the map-ont PAF path: `mm2tpu_torch.cli.main -x map-ont --map-mode
+     batch --device cuda` on a seeded 48 Mb genome with 1000 ONT-like
+     reads; >= 95% of the reads must map, and only K1 may have chained
+     (its launches, anchors, padded anchors and card time from the
+     chain.* counters)
  5s. device seeding on phase 5's genome and reads: (i) the index probe K5
      and the anchor pipeline K6 (mm2tpu_torch/csrc/seed.cu: probe,
      count, expand and radix sort into K1's planes) against their plain
@@ -164,6 +168,24 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      strand, mlen, blen, mapq, tp, cg and NM equal to the rows of a
      `--map-mode stream -c` CLI run of the same reads, with route.gpu,
      route.host and K1's launches
+ 5t. the trace and the port's other entry points, on phase 5's genome
+     (its index written once to an MMX file with -d, which every run
+     maps) and its first 100 reads: (i) `--map-mode batch -a
+     --align-backend gpu --align-tpu-min-mat 1 --seed-backend gpu`; (ii)
+     the same with `--profile-trace DIR`: the SAM byte-identical to
+     (i)'s without @PG, K1's, K5's and K6's launches and ext.fills equal
+     to (i)'s, the trace's device events of each kernel (chain_kernel,
+     extd2_kernel, seed_probe, seed_count, seed_offsets, seed_expand,
+     seed_sort_pass) equal to the launches its wrapper counted, and stage
+     ranges from the main thread and the align threads; both walls and
+     the trace's size; (iii) `--map-mode stream -t 4 --chain-backend gpu
+     -a --align-backend gpu --align-tpu-min-mat 1 --profile-trace` on the
+     first 15 reads: its SAM records (i)'s of those reads, the trace held
+     as in (ii), with ranges from the pool's threads; (iv) no --map-mode:
+     the PAF byte-identical to `--map-mode stream --chain-backend
+     native`'s; (v) `python -m mm2tpu_torch.entry`, in this process (K1
+     at (32, 4096) and the dry run over the cards); (vi)
+     `mm2tpu_torch.tools.paftools` stat and sam2paf on (i)'s SAM
   6. the map-ont SAM path: the same reads with `-a --align-backend gpu
      --align-tpu-min-mat 1`, every extension fill on K3 (the flushes'
      serial rows ext.d2_rows, the wide fills ext.d2_wide, K3's card time
@@ -197,7 +219,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
      tensors: their SAM records must be byte-identical to K4's
  11. no module of jax or of the JAX package loaded; a JSON line per
      kernel (times, launches, bound, stream-mode launches and, from 5r,
-     B = 1 times; the launches of 5h's hosts and of 5p's second pass),
+     B = 1 times; the launches of 5h's hosts and of 5p's second pass;
+     the device events of 5t (ii)'s trace),
      the card's name and power limit,
      then {"ok": true, "device": {...}} last
 
@@ -210,11 +233,14 @@ tests/test_torch_ksw2_extd2.py, tests/test_torch_ksw2_exts2.py).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import glob
 import importlib.util
+import io
 import json
 import os
+import runpy
 import signal
 import subprocess
 import sys
@@ -1151,8 +1177,8 @@ def phase_main_path(tmp):
     chain_v3.launches = 0
     chain_v3.reference_calls = 0
     t0 = time.perf_counter()
-    rc = cli.main(["-x", "map-ont", "--device", DEVICE, "--profile",
-                   "-o", paf, ref, reads])
+    rc = cli.main(["-x", "map-ont", "--map-mode", "batch", "--device",
+                   DEVICE, "--profile", "-o", paf, ref, reads])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, ref_calls = chain_v3.launches, chain_v3.reference_calls
@@ -1498,8 +1524,8 @@ def phase_seed_path(tmp, ref, reads, lines, ph5_counters, why):
     version. Returns the launches of K5 and K6."""
     paf = os.path.join(tmp, "seed_gpu.paf")
     wall, counts, stages, counters = drive(
-        ["-x", "map-ont", "--seed-backend", "gpu", "--device", DEVICE, "-o",
-         paf, ref, reads])
+        ["-x", "map-ont", "--map-mode", "batch", "--seed-backend", "gpu",
+         "--device", DEVICE, "-o", paf, ref, reads])
     want_on = ("chain_v3", "seed_probe", "seed_build")
     for k, (launches, plain) in counts.items():
         if plain or (launches > 0) != (k in want_on):
@@ -1860,8 +1886,9 @@ def phase_split_prefix(tmp, ref, reads):
     cli._split_merge = counted
     try:
         wall, counts, stages, c = drive(
-            ["-x", "map-ont", "--split-prefix", prefix, "-I", str(size),
-             "--device", DEVICE, "-o", paf, ref, reads])
+            ["-x", "map-ont", "--map-mode", "batch", "--split-prefix",
+             prefix, "-I", str(size), "--device", DEVICE, "-o", paf, ref,
+             reads])
     finally:
         cli._split_merge = merge
     left = [f for f in os.listdir(tmp) if f.endswith(".tmp")]
@@ -1923,8 +1950,8 @@ def mesh_run(tmp, tag, what, ref, reads, lines, ph5_counters, argv=(),
     paf = os.path.join(tmp, "mesh_%s.paf" % tag)
     cp.launches8 = pm.launches = 0
     wall, counts, stages, counters = drive(
-        ["-x", "map-ont", "--device", DEVICE, *argv, "-o", paf, ref, reads],
-        **main_kw)
+        ["-x", "map-ont", "--map-mode", "batch", "--device", DEVICE, *argv,
+         "-o", paf, ref, reads], **main_kw)
     k1a, k7 = cp.launches8, pm.launches
     only("5m", what, counts, "chain_v3")
     with open(paf) as fh:
@@ -2254,9 +2281,9 @@ def strip_pg(text):
 
 
 def sam_args(backend, out, ref, reads, *extra):
-    return ["-x", "map-ont", "-a", "--align-backend", backend,
-            "--align-tpu-min-mat", "1", "--device", DEVICE, *extra, "-o",
-            out, ref, reads]
+    return ["-x", "map-ont", "--map-mode", "batch", "-a", "--align-backend",
+            backend, "--align-tpu-min-mat", "1", "--device", DEVICE, *extra,
+            "-o", out, ref, reads]
 
 
 def phase_sam(tmp, ref, reads):
@@ -2347,8 +2374,8 @@ def phase_parity(tmp, ref, reads, lines):
     paf = os.path.join(tmp, "parity.paf")
     t0 = time.perf_counter()
     calls, launches = chain_v3.reference_calls, chain_v3.launches
-    rc = cli.main(["-x", "map-ont", "--device", DEVICE, "-o", paf, ref, sub],
-                  chain_fn=chain_scores_plain)
+    rc = cli.main(["-x", "map-ont", "--map-mode", "batch", "--device",
+                   DEVICE, "-o", paf, ref, sub], chain_fn=chain_scores_plain)
     torch.cuda.synchronize()
     if rc != 0:
         raise AssertionError("parity run: mm2tpu_torch.cli.main returned %d"
@@ -2414,7 +2441,13 @@ def chain_counts():
 def drive(argv, profile=True, **main_kw):
     """`mm2tpu_torch.cli.main(argv)` with every kernel's launch and
     plain-version count set to 0 just before and read just after. Returns
-    (wall s, {kernel: (launches, plain calls)}, stage seconds, counters)."""
+    (wall s, {kernel: (launches, plain calls)}, stage seconds, counters).
+    `argv` must name its --map-mode: the default, stream, runs one
+    extension fill a launch, so a run that meant batch would silently
+    take much longer."""
+    if "--map-mode" not in argv:
+        raise ValueError("drive(): the argv names no --map-mode: %s"
+                         % (argv,))
     from mm2tpu_torch import cli
     from mm2tpu_torch.utils import profiling
     from mm2tpu_torch.ops import seed_device as sd
@@ -2517,7 +2550,8 @@ def phase_sr(tmp, ref):
             SR_PAIRS, time.perf_counter() - t0))
     paf = os.path.join(tmp, "sr.paf")
     wall, counts, stages, counters = drive(
-        ["-x", "sr", "--device", DEVICE, "-o", paf, ref, r1, r2])
+        ["-x", "sr", "--map-mode", "batch", "--device", DEVICE, "-o", paf,
+         ref, r1, r2])
     only(8, "PAF", counts, "chain_v2")
     with open(paf) as fh:
         lines = fh.read().splitlines()
@@ -2534,7 +2568,8 @@ def phase_sr(tmp, ref):
              for k, r in ((1, r1), (2, r2))]
     for backend in ("gpu", "host"):
         out = os.path.join(tmp, "sr.%s.sam" % backend)
-        w, c, st, ctr = drive(["-x", "sr", "-a", "--align-backend", backend,
+        w, c, st, ctr = drive(["-x", "sr", "--map-mode", "batch", "-a",
+                               "--align-backend", backend,
                                "--align-tpu-min-mat", "1", "--device",
                                DEVICE, "-o", out, ref, *sam_q])
         if backend == "gpu":
@@ -2583,7 +2618,8 @@ def phase_splice(tmp, ref):
             SPLICE_READS, time.perf_counter() - t0))
     paf = os.path.join(tmp, "tx.paf")
     wall, counts, stages, counters = drive(
-        ["-x", "splice", "--device", DEVICE, "-o", paf, ref, reads])
+        ["-x", "splice", "--map-mode", "batch", "--device", DEVICE, "-o",
+         paf, ref, reads])
     only(9, "PAF", counts, "chain_v2")
     with open(paf) as fh:
         lines = fh.read().splitlines()
@@ -2597,9 +2633,10 @@ def phase_splice(tmp, ref):
     sams, k4 = {}, 0
     for backend in ("gpu", "host"):
         out = os.path.join(tmp, "tx.%s.sam" % backend)
-        w, c, st, ctr = drive(["-x", "splice", "-a", "--align-backend",
-                               backend, "--align-tpu-min-mat", "1",
-                               "--device", DEVICE, "-o", out, ref, reads])
+        w, c, st, ctr = drive(["-x", "splice", "--map-mode", "batch", "-a",
+                               "--align-backend", backend,
+                               "--align-tpu-min-mat", "1", "--device",
+                               DEVICE, "-o", out, ref, reads])
         if backend == "gpu":
             only(9, "SAM through K4", c, "chain_v2", "ksw2_exts2")
             if ctr.get("ext.fills", 0) <= 0 or ctr.get("ext.host_fills", 0):
@@ -2637,9 +2674,10 @@ def phase_splice(tmp, ref):
     c_reads = os.path.join(tmp, "tx_c.fa")
     c_recs = read_fasta(reads)[:SPLICE_CIGAR_READS]
     write_reads(c_reads, c_recs)
-    w, c, st, ctr = drive(["-x", "splice", "-c", "--align-backend", "gpu",
-                           "--align-tpu-min-mat", "1", "--device", DEVICE,
-                           "-o", cpaf, ref, c_reads])
+    w, c, st, ctr = drive(["-x", "splice", "--map-mode", "batch", "-c",
+                           "--align-backend", "gpu", "--align-tpu-min-mat",
+                           "1", "--device", DEVICE, "-o", cpaf, ref,
+                           c_reads])
     only(9, "PAF with CIGARs (-c) through K4", c, "chain_v2", "ksw2_exts2")
     if ctr.get("ext.fills", 0) <= 0 or ctr.get("ext.host_fills", 0):
         raise AssertionError("-x splice -c: ext.fills %s, ext.host_fills %s"
@@ -2670,9 +2708,9 @@ def phase_exts2_parity(tmp, ref, tx):
     write_reads(sub, recs)
     out = os.path.join(tmp, "exts2_parity.sam")
     wall, counts, _, counters = drive(
-        ["-x", "splice", "-a", "--align-backend", "gpu",
-         "--align-tpu-min-mat", "1", "--device", DEVICE, "-o", out, ref,
-         sub], exts2_fn=S.exts2_traced_reference)
+        ["-x", "splice", "--map-mode", "batch", "-a", "--align-backend",
+         "gpu", "--align-tpu-min-mat", "1", "--device", DEVICE, "-o", out,
+         ref, sub], exts2_fn=S.exts2_traced_reference)
     launches, plain = counts["ksw2_exts2"]
     if launches or plain <= 0 or counters.get("ext.host_fills", 0):
         raise AssertionError("exts2 parity run did not use the plain exts2 "
@@ -2712,8 +2750,8 @@ def phase_v2_parity(tmp, ref, sr, tx):
              {n for n, _ in recs}, tx_lines)):
         out = os.path.join(tmp, "par_%s.paf" % preset)
         wall, counts, _, _ = drive(
-            ["-x", preset, "--device", DEVICE, "-o", out, ref, *queries],
-            profile=False, chain_fn=chain_scores_plain)
+            ["-x", preset, "--map-mode", "batch", "--device", DEVICE, "-o",
+             out, ref, *queries], profile=False, chain_fn=chain_scores_plain)
         if counts["chain_v2"][1] <= 0 or \
                 any(c[0] for c in counts.values()):
             raise AssertionError("%s parity run did not use the plain "
@@ -2891,8 +2929,9 @@ def phase_hosts(tmp, ref, reads, lines):
     write_reads(stop_reads, read_fasta(reads)[:HOSTS_STOP_READS])
     # (iv) runs beside (i)-(iii): its survivors wait for its timeout
     stop_out = os.path.join(tmp, "hosts_stop.paf")
-    stop = start_hosts(tmp, "iv", 3, ["-x", "map-ont", "--device", DEVICE,
-                                      "-o", stop_out, ref, stop_reads],
+    stop = start_hosts(tmp, "iv", 3, ["-x", "map-ont", "--map-mode", "batch",
+                                      "--device", DEVICE, "-o", stop_out,
+                                      ref, stop_reads],
                        timeout_s=HOSTS_STOP_TIMEOUT)
     time.sleep(0.5)
     stop[0][2].send_signal(signal.SIGSTOP)
@@ -2910,8 +2949,8 @@ def phase_hosts(tmp, ref, reads, lines):
     # (i) phase 5's reads over two hosts, both on cuda:0
     paf = os.path.join(tmp, "hosts_i.paf")
     res = finish_hosts("(i)", *start_hosts(
-        tmp, "i", 2, ["-x", "map-ont", "--device", DEVICE, "-o", paf, ref,
-                      reads]))
+        tmp, "i", 2, ["-x", "map-ont", "--map-mode", "batch", "--device",
+                      DEVICE, "-o", paf, ref, reads]))
     hosts_only("(i)", res, "chain_v3")
     with open(paf) as fh:
         if fh.read().splitlines() != lines:
@@ -2930,8 +2969,9 @@ def phase_hosts(tmp, ref, reads, lines):
     # (ii) SAM through K3 on the first reads, against one host
     sam = os.path.join(tmp, "hosts_ii.sam")
     one = os.path.join(tmp, "hosts_ii_one.sam")
-    sam_args = ["-x", "map-ont", "-a", "--align-backend", "gpu",
-                "--align-tpu-min-mat", "1", "--device", DEVICE]
+    sam_args = ["-x", "map-ont", "--map-mode", "batch", "-a",
+                "--align-backend", "gpu", "--align-tpu-min-mat", "1",
+                "--device", DEVICE]
     started = start_hosts(tmp, "ii", 2, [*sam_args, "-o", sam, ref, sub])
     # the single host runs here while the two host processes start
     wall1, counts1, _, _ = drive([*sam_args, "-o", one, ref, sub])
@@ -2954,13 +2994,15 @@ def phase_hosts(tmp, ref, reads, lines):
     # (iii) a mesh of two shards of cuda:0 in each host, and beside it (v)
     # device seeding in each host of another run, on the first reads
     paf = os.path.join(tmp, "hosts_iii.paf")
-    started = start_hosts(tmp, "iii", 2, ["-x", "map-ont", "--device",
-                                          DEVICE, "-o", paf, ref, reads],
+    started = start_hosts(tmp, "iii", 2, ["-x", "map-ont", "--map-mode",
+                                          "batch", "--device", DEVICE, "-o",
+                                          paf, ref, reads],
                           shards=2)
     paf_v = os.path.join(tmp, "hosts_v.paf")
-    started_v = start_hosts(tmp, "v", 2, ["-x", "map-ont", "--seed-backend",
-                                          "gpu", "--device", DEVICE, "-o",
-                                          paf_v, ref, sub])
+    started_v = start_hosts(tmp, "v", 2, ["-x", "map-ont", "--map-mode",
+                                          "batch", "--seed-backend", "gpu",
+                                          "--device", DEVICE, "-o", paf_v,
+                                          ref, sub])
     res = finish_hosts("(iii)", *started)
     hosts_only("(iii)", res, "chain_v3", "chain_packed8", "mesh_chain_step8")
     with open(paf) as fh:
@@ -2975,8 +3017,8 @@ def phase_hosts(tmp, ref, reads, lines):
     if torch.cuda.device_count() >= 4:
         paf = os.path.join(tmp, "hosts_iii4.paf")
         res = finish_hosts("(iii) four cards", *start_hosts(
-            tmp, "iii4", 2, ["-x", "map-ont", "--mesh", "2", "--device",
-                             DEVICE, "-o", paf, ref, reads],
+            tmp, "iii4", 2, ["-x", "map-ont", "--map-mode", "batch", "--mesh",
+                             "2", "--device", DEVICE, "-o", paf, ref, reads],
             envs=[{"CUDA_VISIBLE_DEVICES": "0,1"},
                   {"CUDA_VISIBLE_DEVICES": "2,3"}]))
         hosts_only("(iii) four cards", res, "chain_v3", "chain_packed8",
@@ -3126,6 +3168,231 @@ def phase_api(tmp, ref, reads):
     return k1
 
 
+# ---- phase 5t: the torch.profiler trace, the default map mode, the entry
+# points and paftools ----
+
+# phase 5's first reads, mapped to SAM in batch mode untraced and traced;
+# the first TRACE_STREAM_READS of them in stream mode, traced (one fill a
+# K3 launch, ~60 a read, and ~2.8 MB of trace a read: fewer reads)
+TRACE_READS, TRACE_STREAM_READS, TRACE_THREADS = 100, 15, 4
+# the kernels of csrc/ by the names a trace gives their launches, and the
+# name that stands for each kernel of the JSON line
+TRACE_KERNELS = ("chain_kernel", "extd2_kernel", "exts2_kernel",
+                 "seed_probe", "seed_count", "seed_offsets", "seed_expand",
+                 "seed_sort_pass")
+TRACE_NAMES = {"chain_v3": "chain_kernel", "ksw2_extd2": "extd2_kernel",
+               "ksw2_exts2": "exts2_kernel", "seed_probe": "seed_probe",
+               "seed_build": "seed_count"}
+
+
+def trace_read(phase, what, d):
+    """The one trace file in `d`: (kernel events by TRACE_KERNELS name,
+    the stage ranges as (thread id, name), its bytes)."""
+    import re
+    from collections import Counter
+    files = glob.glob(os.path.join(d, "*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError("%s %s: %d trace files in %s" % (
+            phase, what, len(files), d))
+    with open(files[0]) as fh:
+        events = json.load(fh)["traceEvents"]
+    pat = re.compile(r"\b(%s)\b" % "|".join(TRACE_KERNELS))
+    kernels = Counter()
+    for e in events:
+        if e.get("cat") == "kernel":
+            m = pat.search(e.get("name", ""))
+            if m:
+                kernels[m.group(1)] += 1
+    ranges = [(e["tid"], e["name"]) for e in events
+              if e.get("cat") == "user_annotation"]
+    return kernels, ranges, os.path.getsize(files[0])
+
+
+def trace_check(phase, what, d, counts, sort_passes, threaded):
+    """The trace's device events of each kernel equal the launches its
+    wrapper counted in the run (a K6 launch is seed_count, seed_offsets,
+    seed_expand and its sort passes), and its stage ranges come from the
+    main thread and the threads of `threaded` stages. Returns (kernel
+    events, bytes)."""
+    kernels, ranges, size = trace_read(phase, what, d)
+    build = counts["seed_build"][0]
+    want = {"chain_kernel": counts["chain_v3"][0] + counts["chain_v2"][0],
+            "extd2_kernel": counts["ksw2_extd2"][0],
+            "exts2_kernel": counts["ksw2_exts2"][0],
+            "seed_probe": counts["seed_probe"][0], "seed_count": build,
+            "seed_offsets": build, "seed_expand": build,
+            "seed_sort_pass": sort_passes}
+    got = {k: kernels.get(k, 0) for k in TRACE_KERNELS}
+    if got != want:
+        raise AssertionError("%s %s: the trace's kernel events %s, the "
+                             "wrappers' launches %s" % (phase, what, got,
+                                                        want))
+    tids = {}
+    for tid, name in ranges:
+        tids.setdefault(tid, set()).add(name)
+    main = [t for t, names in tids.items() if "emit" in names]
+    others = set().union(*(n for t, n in tids.items() if t not in main))
+    if len(main) != 1 or len(tids) < 2 or not threaded <= others:
+        raise AssertionError("%s %s: stage ranges by thread %s" % (
+            phase, what, {t: sorted(n) for t, n in tids.items()}))
+    say(phase, "%s: the trace (%d bytes) holds a device event for each "
+        "counted launch (%s) and stage ranges from %d threads (the "
+        "others' stages: %s)" % (
+            what, size, ", ".join("%s %d" % kv for kv in got.items()),
+            len(tids), ", ".join(sorted(others))))
+    return got, size
+
+
+def traced_drive(tmp, tag, argv):
+    """`drive(argv)` with --profile-trace into a new directory: (wall,
+    counts, counters, K6's sort passes, the directory, the seconds of
+    the trace's start and of its end)."""
+    from mm2tpu_torch.ops import seed_device as sd
+    d = os.path.join(tmp, "trace_" + tag)
+    wall, counts, stages, counters = drive([*argv, "--profile-trace", d])
+    return (wall, counts, counters, sd.sort_passes, d,
+            stages["trace.start"][0], stages["trace.write"][0])
+
+
+def phase_trace(tmp, ref, reads):
+    """Phase 5t. Returns the trace's kernel events of (ii) by kernel."""
+    from mm2tpu_torch import cli
+    from mm2tpu_torch.tools import paftools
+    recs = read_fasta(reads)[:TRACE_READS]
+    sub, sub_s = (os.path.join(tmp, n) for n in ("trace_reads.fa",
+                                                 "trace_stream_reads.fa"))
+    write_reads(sub, recs)
+    write_reads(sub_s, recs[:TRACE_STREAM_READS])
+    # the index once, as an MMX file that each run maps in milliseconds
+    mmx = os.path.join(tmp, "trace_index.mmx")
+    t0 = time.perf_counter()
+    if cli.main(["-x", "map-ont", "-d", mmx, "--device", DEVICE, ref]) != 0:
+        raise AssertionError("5t: -d %s returned non-zero" % mmx)
+    say("5t", "index of phase 5's genome written to an MMX file in %.3f s "
+        "(%d bytes)" % (time.perf_counter() - t0, os.path.getsize(mmx)))
+    sam_argv = ["-x", "map-ont", "--map-mode", "batch", "-a",
+                "--align-backend", "gpu", "--align-tpu-min-mat", "1",
+                "--seed-backend", "gpu", "--device", DEVICE]
+    kernels = ("chain_v3", "ksw2_extd2", "seed_probe", "seed_build")
+    outs = [os.path.join(tmp, "trace_%s.sam" % t) for t in ("i", "ii")]
+    w1, c1, _, k1 = drive([*sam_argv, "-o", outs[0], mmx, sub])
+    w2, c2, k2, passes, d2, start2, write2 = traced_drive(tmp, "ii", [
+        *sam_argv, "-o", outs[1], mmx, sub])
+    sams = []
+    for tag, c, out in (("(i)", c1, outs[0]), ("(ii)", c2, outs[1])):
+        only("5t", tag, c, *kernels)
+        with open(out) as fh:
+            sams.append(strip_pg(fh.read()))
+    if sams[1] != sams[0]:
+        raise AssertionError("5t (ii): the traced SAM differs from the "
+                             "untraced one")
+    fixed = ("chain_v3", "seed_probe", "seed_build")
+    if any(c1[k] != c2[k] for k in fixed) or k1["ext.fills"] != \
+            k2["ext.fills"]:
+        raise AssertionError("5t (ii): launches %s and ext.fills %d traced, "
+                             "%s and %d untraced" % (
+                                 c2, k2["ext.fills"], c1, k1["ext.fills"]))
+    events, size = trace_check("5t", "(ii) batch SAM, traced", d2, c2,
+                               passes, {"post", "align"})
+    n_rec = len(sam_records(sams[0]))
+    say("5t", "(i), (ii) -a --align-backend gpu --seed-backend gpu, %d "
+        "reads, %d SAM records: untraced %.3f s, traced %.3f s (+%.3f s; "
+        "the trace's start %.3f s, the first in this process, and its "
+        "end %.3f s); the SAMs byte-identical without @PG; K1, K5, K6 "
+        "launches and ext.fills equal (K3's launches, the flushes, follow "
+        "how the align threads meet: %d and %d); trace %d bytes" % (
+            len(recs), n_rec, w1, w2, w2 - w1, start2, write2,
+            c1["ksw2_extd2"][0], c2["ksw2_extd2"][0], size))
+    # (iii) stream mode on a pool, every task on K1 and every fill one K3
+    # launch
+    out = os.path.join(tmp, "trace_iii.sam")
+    w3, c3, _, passes3, d3, start3, write3 = traced_drive(tmp, "iii", [
+        "-x", "map-ont", "--map-mode", "stream", "-t", str(TRACE_THREADS),
+        "--chain-backend", "gpu", "-a", "--align-backend", "gpu",
+        "--align-tpu-min-mat", "1", "--device", DEVICE, "-o", out, mmx,
+        sub_s])
+    only("5t", "(iii)", c3, "chain_v3", "ksw2_extd2")
+    names = {name for name, _ in recs[:TRACE_STREAM_READS]}
+    with open(out) as fh:
+        got = strip_pg(fh.read())
+    want = [r for r in sam_records(sams[0]) if r[0] in names]
+    if sam_records(got) != want:
+        raise AssertionError("5t (iii): the traced stream SAM differs from "
+                             "(i)'s records of its reads")
+    _, size3 = trace_check("5t", "(iii) stream SAM, -t %d, traced"
+                           % TRACE_THREADS, d3, c3, passes3,
+                           {"seed", "chain", "post"})
+    say("5t", "(iii) --map-mode stream -t %d --chain-backend gpu, %d reads: "
+        "SAM records equal to (i)'s, K1 %d and K3 %d launches; traced %.3f "
+        "s (the trace's start %.3f s, its end %.3f s), trace %d bytes" % (
+            TRACE_THREADS, TRACE_STREAM_READS, c3["chain_v3"][0],
+            c3["ksw2_extd2"][0], w3, start3, write3, size3))
+    # (iv) no --map-mode: the default, stream, as in the JAX package
+    pafs = {k: os.path.join(tmp, "trace_iv_%s.paf" % k)
+            for k in ("default", "native")}
+    t0 = time.perf_counter()
+    if cli.main(["-x", "map-ont", "--device", DEVICE, "-o",
+                 pafs["default"], mmx, sub]) != 0:
+        raise AssertionError("5t (iv): the run with no --map-mode failed")
+    w4 = time.perf_counter() - t0
+    w5, c5, _, _ = drive(["-x", "map-ont", "--map-mode", "stream",
+                          "--chain-backend", "native", "--device", DEVICE,
+                          "-o", pafs["native"], mmx, sub])
+    only("5t", "(iv) native", c5)
+    with open(pafs["default"]) as fa, open(pafs["native"]) as fb:
+        lines = fa.read()
+        if lines != fb.read():
+            raise AssertionError("5t (iv): the PAF of no --map-mode differs "
+                                 "from --map-mode stream --chain-backend "
+                                 "native's")
+    say("5t", "(iv) no --map-mode, %d reads: PAF (%d lines) byte-identical "
+        "to --map-mode stream --chain-backend native's (%.3f s, %.3f s)" % (
+            len(recs), len(lines.splitlines()), w4, w5))
+    # (v) the entry points, as `python -m mm2tpu_torch.entry` runs them
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        try:
+            runpy.run_module("mm2tpu_torch.entry", run_name="__main__")
+            rc = None
+        except SystemExit as e:
+            rc = e.code
+    out = buf.getvalue()
+    if rc != 0 or "entry OK: [(32, 4096), (32, 4096)]" not in out or \
+            "dryrun_multichip OK" not in out:
+        raise AssertionError("5t (v): python -m mm2tpu_torch.entry: exit "
+                             "%s\n%s" % (rc, out[-2000:]))
+    for ln in out.splitlines():
+        say("5t", "(v) python -m mm2tpu_torch.entry: " + ln)
+    say("5t", "(v) python -m mm2tpu_torch.entry: %.3f s" % (
+        time.perf_counter() - t0))
+    # (vi) paftools on (i)'s SAM
+    sam = os.path.join(tmp, "trace_i.sam")
+    text = {}
+    for cmd in ("stat", "sam2paf"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = paftools.main([cmd, sam])
+        text[cmd] = buf.getvalue()
+        if rc != 0 or not text[cmd]:
+            raise AssertionError("5t (vi): paftools %s returned %d" % (cmd,
+                                                                      rc))
+    mapped = [r for r in sam_records(sams[0]) if not int(r[1]) & 4]
+    stat = dict(ln.split(": ", 1) for ln in text["stat"].splitlines()
+                if ": " in ln)
+    n_paf = len(text["sam2paf"].splitlines())
+    if int(stat["Number of mapped sequences"]) < MIN_MAPPED * len(recs) or \
+            n_paf != len(mapped):
+        raise AssertionError("5t (vi): paftools stat %s, sam2paf %d lines "
+                             "for %d mapped records" % (stat, n_paf,
+                                                        len(mapped)))
+    say("5t", "(vi) paftools stat: %d mapped sequences, %s primary "
+        "alignments; paftools sam2paf: %d PAF lines, one a mapped record" % (
+            int(stat["Number of mapped sequences"]),
+            stat.get("Number of primary alignments"), n_paf))
+    return events
+
+
 def kernel_line(name, source, replaces, launches, max_err, times, work,
                 clock):
     bound_ms, bound_by = bound(*work, clock)
@@ -3138,14 +3405,14 @@ def kernel_line(name, source, replaces, launches, max_err, times, work,
             "library_ms": None}
 
 
-PHASES = ("1", "2", "3", "3b", "4", "5", "5s", "5r", "5m", "5h", "5p", "6",
-          "7", "8", "9", "10")
+PHASES = ("1", "2", "3", "3b", "4", "5", "5s", "5r", "5m", "5h", "5p", "5t",
+          "6", "7", "8", "9", "10")
 # the deep parity runs (paths mapped again through the plain versions):
 # run with --deep or when named in --phases
 DEEP = ("7", "10")
 # phases that take another phase's outputs
 NEEDS = {"5s": ("5",), "5r": ("5",), "5m": ("5",), "5h": ("5",),
-         "5p": ("5",), "6": ("5",),
+         "5p": ("5",), "5t": ("5",), "6": ("5",),
          "7": ("5", "6"),
          "10": ("8", "9")}
 
@@ -3190,7 +3457,7 @@ def main(argv=None) -> int:
     k4 = phase_exts2_kernel_vs_plain() if "3b" in run else None
     k2 = phase_v2_kernel_vs_plain() if "4" in run else None
     launches = ext_launches = sr = tx = seed = stream = mesh = None
-    hosts = api = None
+    hosts = api = trace = None
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         if "5" in run:
             ref, reads, lines, launches, ph5 = phase_main_path(tmp)
@@ -3211,6 +3478,8 @@ def main(argv=None) -> int:
             hosts = phase_hosts(tmp, ref, reads, lines)
         if "5p" in run:
             api = {"chain_v3": phase_api(tmp, ref, reads)}
+        if "5t" in run:
+            trace = phase_trace(tmp, ref, reads)
         if "6" in run:
             sam, ext_launches = phase_sam(tmp, ref, reads)
         if "7" in run:
@@ -3307,6 +3576,10 @@ def main(argv=None) -> int:
             hosts.get(line["name"], 0)
         line["api_launches"] = None if api is None else \
             api.get(line["name"], 0)
+        # device events in phase 5t (ii)'s trace (K6: its seed_count
+        # events, one a launch)
+        line["trace_events"] = None if trace is None else trace.get(
+            TRACE_NAMES.get(line["name"]), 0)
         # launches in phase 5r's stream runs: K1 in (ii), K2, K3 and K4 in
         # (v); the stream mode seeds on the host
         line["stream_launches"] = None if stream is None else \

@@ -1,6 +1,7 @@
 """Command-line entry point of the port: minimap2-style arguments,
 chaining (and with `--align-backend gpu` the extension fills) on a torch
-device, in batch mode (the default) or stream mode.
+device, in stream mode (the default, as in the JAX package) or batch
+mode.
 
 Counterpart of `mm2tpu/cli.py` (`main`, `_map_batch`, `_map_one_frag`,
 `_map_all`, `_split_merge`, `cli_entry`). The option surface
@@ -9,34 +10,39 @@ Counterpart of `mm2tpu/cli.py` (`main`, `_map_batch`, `_map_one_frag`,
 (`emit`) are the port's verbatim copies of that module's; `--router-params`
 loads the port's cost model (`mapping/costmodel.py`). Added: `--device
 {cuda,cpu}` and the value `gpu` of `--align-backend`, `--seed-backend`
-and `--chain-backend`. The default map mode is `batch` (the JAX
-package's is `stream`). In `--map-mode stream` every chaining task is
-placed on its own (`--chain-backend auto`: by the H100 cost model and
-the card's queue; `gpu`: all on K1/K2 at B = 1; `native`, `python`: the
-host DP), on a pool of `-t` threads whose results are emitted in input
-order. `--split-prefix` works in both modes. `--mesh N` (batch mode)
-splits each bucket's rows over N shards: the cards cuda:0 .. N-1 with
-`--device cuda` (fewer visible cards is an error, where the JAX package
-quietly takes fewer), N CPU shards with `--device cpu`. `--hosts N`
-runs N host processes, each mapping every N-th fragment and joined by a
-`torch.distributed.TCPStore` at `--coordinator` (`parallel/multihost.py`);
-host 0 merges their stripes into `-o OUTPUT`. Usage:
+and `--chain-backend`. The default map mode is `stream`, as in the JAX
+package: every chaining task is placed on its own (`--chain-backend
+auto`: by the H100 cost model and the card's queue; `gpu`: all on K1/K2
+at B = 1; `native`, `python`: the host DP), on a pool of `-t` threads
+whose results are emitted in input order. `--map-mode batch` chains a
+size bucket of reads a launch. `--split-prefix` works in both modes.
+`--mesh N` (batch mode) splits each bucket's rows over N shards: the
+cards cuda:0 .. N-1 with `--device cuda` (fewer visible cards is an
+error, where the JAX package quietly takes fewer), N CPU shards with
+`--device cpu`. `--hosts N` runs N host processes, each mapping every
+N-th fragment and joined by a `torch.distributed.TCPStore` at
+`--coordinator` (`parallel/multihost.py`); host 0 merges their stripes
+into `-o OUTPUT`. `--profile-trace DIR` writes a `torch.profiler` trace
+of the mapping loop into DIR (`utils/profiling.py`). Usage:
 
-    python -m mm2tpu_torch.cli -x map-ont [--device cuda] ref.fa reads.fa
-    python -m mm2tpu_torch.cli -x map-ont --map-mode stream \
-        [--chain-backend auto|gpu|native|python] [--router-params JSON] \
-        [-t N] [--device cuda] ref.fa reads.fa
+    python -m mm2tpu_torch.cli -x map-ont [--chain-backend
+        auto|gpu|native|python] [--router-params JSON] [-t N]
+        [--device cuda] ref.fa reads.fa
+    python -m mm2tpu_torch.cli -x map-ont --map-mode batch [--device cuda]
+        ref.fa reads.fa
     python -m mm2tpu_torch.cli -x map-ont -a --align-backend gpu \
         [--align-tpu-min-mat N] [--device cuda] ref.fa reads.fa
     python -m mm2tpu_torch.cli -x sr [-a [--align-backend gpu]] \
         [--device cuda] ref.fa reads_1.fq reads_2.fq
     python -m mm2tpu_torch.cli -x splice [-a] [--device cuda] ref.fa reads.fa
-    python -m mm2tpu_torch.cli -x map-ont --seed-backend gpu [--device cuda] \
-        ref.fa reads.fa
+    python -m mm2tpu_torch.cli -x map-ont --map-mode batch --seed-backend \
+        gpu [--device cuda] ref.fa reads.fa
     python -m mm2tpu_torch.cli -x map-ont --mesh N [--device cuda] ref.fa \
         reads.fa
     python -m mm2tpu_torch.cli -x map-ont --hosts N --host-id I \
         --coordinator ADDR:PORT -o out.paf [--device cuda] ref.fa reads.fa
+    python -m mm2tpu_torch.cli -x map-ont --profile-trace DIR [--device \
+        cuda] ref.fa reads.fa
 """
 from __future__ import annotations
 
@@ -579,8 +585,6 @@ def _unsupported(args, mo: MapOptions) -> Optional[str]:
     if args.chain_backend == "tpu":
         return ("--chain-backend tpu (the Pallas chaining kernels; the "
                 "port's device route is --chain-backend gpu)")
-    if args.profile_trace:
-        return "--profile-trace (torch.profiler tracing, ROADMAP M10)"
     return None
 
 
@@ -588,7 +592,6 @@ def build_torch_parser():
     p = build_parser()
     p.prog = "mm2tpu-torch"
     p.description = "minimap2-class mapper, chaining on a PyTorch device"
-    p.set_defaults(map_mode="batch")
     p.add_argument("--device", choices=DEVICES, default="cuda",
                    help="where the chaining DP (and with --align-backend "
                         "gpu the extension and splice fills) runs: cuda = "
@@ -623,7 +626,12 @@ def build_torch_parser():
     act = next(a for a in p._actions if a.dest == "map_mode")
     act.help = ("batch = one chaining launch per size bucket of reads; "
                 "stream = each read on its own, each chaining task placed "
-                "by --chain-backend [batch]")
+                "by --chain-backend [stream]")
+    act = next(a for a in p._actions if a.dest == "profile_trace")
+    act.help = ("additionally write a torch.profiler trace of the mapping "
+                "loop into DIR, TensorBoard's layout (one *.pt.trace.json "
+                "a process; every thread's stage ranges, and the kernels "
+                "on the card), implies --profile")
     act = next(a for a in p._actions if a.dest == "seed_backend")
     act.choices = ["host", "tpu", "gpu"]
     act.help = ("gpu = the index probe, the anchor build and sort and the "
@@ -647,14 +655,15 @@ def main(argv: Optional[List[str]] = None, *, chain_fn=None,
     through the kernels' plain versions with them. They apply to batch
     mode only. `mesh` (`parallel.mesh.make_mesh`) takes the place of the
     mesh that `--mesh` builds, as when a check puts two shards on one
-    card. The cost model that `--router-params` loads, and a
-    finished warm-up of the card with its failure, are dropped when the
-    call returns."""
+    card. The cost model that `--router-params` loads, a finished
+    warm-up of the card with its failure, and the trace directory of
+    `--profile-trace` are dropped when the call returns."""
     try:
         return _main(argv, chain_fn, ext_fn, exts2_fn, seed_fn, mesh)
     finally:
         costmodel.reset_default_model()
         costmodel.reset_probe()
+        profiling.end_trace()
 
 
 def _main(argv, chain_fn, ext_fn, exts2_fn, seed_fn, mesh) -> int:
@@ -670,8 +679,8 @@ def _main(argv, chain_fn, ext_fn, exts2_fn, seed_fn, mesh) -> int:
         parser.print_usage()
         return 1
     timing.verbose = args.v
-    if args.profile:
-        profiling.enable()
+    if args.profile or args.profile_trace:
+        profiling.enable(args.profile_trace)
 
     io, mo = set_opt(None)
     if args.preset:
@@ -708,7 +717,8 @@ def _main(argv, chain_fn, ext_fn, exts2_fn, seed_fn, mesh) -> int:
         # device seeding is batch-only, as in the JAX package; the batch
         # hooks have no stream counterpart
         if mo.seed_backend == "gpu":
-            print("[ERROR] --seed-backend gpu runs in --map-mode batch only",
+            print("[ERROR] --seed-backend gpu runs in --map-mode batch only "
+                  "(the default map mode is stream): add --map-mode batch",
                   file=sys.stderr)
             return 1
         if any(fn is not None for fn in (chain_fn, ext_fn, exts2_fn,
@@ -939,12 +949,14 @@ def map_one_frag(mi, mo: MapOptions, frag, device):
 def map_all(query_paths, mi, mo: MapOptions, out, device,
             chain_fn=None, ext_fn=None, exts2_fn=None, seed_fn=None, *,
             part_idx: int = 0, n_threads: int = 1,
-            map_mode: str = "batch", mesh=None, coord=None,
+            map_mode: str = "stream", mesh=None, coord=None,
             out_path=None) -> int:
     """Map every query mini-batch against one index part and emit in
     input order, or with --split-prefix dump the part's raw hits to its
     temporary file (mm2tpu.cli._map_all, map.c:571-585, mm_split_init).
-    Returns the number of sequences mapped.
+    Returns the number of sequences mapped. Each of the three mapping
+    loops (batch, stream on one thread, stream on the pool) runs inside
+    `profiling.trace_if_enabled`, as in the JAX package.
 
     Batch mode maps a mini-batch at a time (`map_batch`; with `mesh`,
     each bucket's rows are split over its devices). Stream mode
@@ -1010,9 +1022,10 @@ def map_all(query_paths, mi, mo: MapOptions, out, device,
                 yield mine
 
     if map_mode == "batch":
-        for batch in batches():
-            map_batch(mi, mo, batch, consume, device, chain_fn, ext_fn,
-                      exts2_fn, seed_fn, mesh)
+        with profiling.trace_if_enabled(device):
+            for batch in batches():
+                map_batch(mi, mo, batch, consume, device, chain_fn, ext_fn,
+                          exts2_fn, seed_fn, mesh)
     else:
         counted = _count_host_fills() \
             if mo.align_backend == "gpu" and (mo.flag & MM_F_CIGAR) \
@@ -1027,9 +1040,10 @@ def map_all(query_paths, mi, mo: MapOptions, out, device,
 
         with counted:
             if n_threads <= 1:
-                for batch in batches():
-                    for frag in batch:
-                        consume(frag, one(frag))
+                with profiling.trace_if_enabled(device):
+                    for batch in batches():
+                        for frag in batch:
+                            consume(frag, one(frag))
             else:
                 queue: queue_mod.Queue = queue_mod.Queue(maxsize=2)
 
@@ -1042,7 +1056,8 @@ def map_all(query_paths, mi, mo: MapOptions, out, device,
                         queue.put(e)
 
                 threading.Thread(target=produce, daemon=True).start()
-                with ThreadPoolExecutor(n_threads) as ex:
+                with profiling.trace_if_enabled(device), \
+                        ThreadPoolExecutor(n_threads) as ex:
                     while True:
                         batch = queue.get()
                         if batch is None:

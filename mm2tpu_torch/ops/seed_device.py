@@ -40,7 +40,11 @@ A CPU tensor goes to the plain version (`probe_counts_reference`;
 `build_anchors_reference` and `sort_anchors`, which the card's path never
 runs); a CUDA tensor launches the kernels or raises. `launches` and
 `reference_calls` count, per kernel ("probe", "build"), the launches (a
-K6 launch is its whole chain) and the runs of the plain version.
+K6 launch is its whole chain) and the runs of the plain version;
+`sort_passes` counts the `seed_sort_pass` kernels of those K6 chains (a
+chain launches `seed_count`, `seed_offsets`, `seed_expand`, then one
+pass per 8 bits of its sort key), so that a profiler trace's kernels
+can be held to the counts.
 """
 from __future__ import annotations
 
@@ -61,12 +65,15 @@ LUT_MAX_BITS = 22          # the bucket table's size, as the native LUT's
 
 launches = {"probe": 0, "build": 0}
 reference_calls = {"probe": 0, "build": 0}
+sort_passes = 0
 
 
 def reset_counts() -> None:
+    global sort_passes
     for d in (launches, reference_calls):
         for k in d:
             d[k] = 0
+    sort_passes = 0
 
 
 class BucketTable(NamedTuple):
@@ -344,8 +351,9 @@ def seed_anchors_reference(index, q, qpos, qyhi, qlen, *, N: int,
 _workspaces: dict = {}
 
 
-def _workspace(B, M, N, rid_bits, pos_bits) -> int:
-    """Scratch bytes of K6 at these sizes (`mm2tpu_seed_workspace`)."""
+def _workspace(B, M, N, rid_bits, pos_bits) -> Tuple[int, int]:
+    """Scratch bytes of K6 at these sizes and its sort passes
+    (`mm2tpu_seed_workspace`)."""
     key = (B, M, N, rid_bits, pos_bits)
     if key not in _workspaces:
         nbytes, passes = ctypes.c_longlong(), ctypes.c_int()
@@ -356,7 +364,7 @@ def _workspace(B, M, N, rid_bits, pos_bits) -> int:
             raise ValueError("seed_anchors: no workspace for B=%d M=%d N=%d "
                              "rid_bits=%d pos_bits=%d (a sort key over 64 "
                              "bits?)" % key)
-        _workspaces[key] = nbytes.value
+        _workspaces[key] = nbytes.value, passes.value
     return _workspaces[key]
 
 
@@ -387,8 +395,8 @@ def seed_anchors(index, q, qpos, qyhi, qlen, *, N: int, mid_occ: int):
     _check_table(table, dev)
     _check("pos", pos, torch.int64, (pos.shape[0],), dev)
     rid_bits, pos_bits = index["rid_bits"], index["pos_bits"]
-    ws = torch.empty(_workspace(B, M, N, rid_bits, pos_bits),
-                     dtype=torch.uint8, device=dev)
+    nbytes, passes = _workspace(B, M, N, rid_bits, pos_bits)
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     planes = torch.empty((4, B, N), dtype=torch.int32, device=dev)
     yhi = torch.empty((B, N), dtype=torch.int16, device=dev)
     n = torch.empty((B, 1), dtype=torch.int32, device=dev)
@@ -400,8 +408,10 @@ def seed_anchors(index, q, qpos, qyhi, qlen, *, N: int, mid_occ: int):
             rid_bits, pos_bits, ws.data_ptr(), ws.numel(), hi.data_ptr(),
             lo.data_ptr(), qi.data_ptr(), span.data_ptr(), yhi.data_ptr(),
             n.data_ptr())
+    global sort_passes
     with count_lock:
         launches["build"] += 1
+        sort_passes += passes
     return hi, lo, qi, span, yhi, n
 
 

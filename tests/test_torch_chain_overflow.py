@@ -210,13 +210,14 @@ def test_seed_round_keeps_reads_over_the_bound_on_the_device(
     ref, reads = mod.make(str(tmp_path), genome_mb=0.2, n_reads=6,
                           mean_len=2000, seed=9)
     base = tmp_path / "base.paf"
-    assert main(["-x", "map-ont", "--device", "cpu", "-o", str(base), ref,
-                 reads]) == 0
+    assert main(["-x", "map-ont", "--map-mode", "batch", "--device", "cpu",
+                 "-o", str(base), ref, reads]) == 0
     monkeypatch.setattr(chain_v3, "KEY_SCORE_MAX", 100)
     monkeypatch.setattr(chain_packed, "KEY_SCORE_MAX", 100)
     out = tmp_path / "dev.paf"
-    assert main(["-x", "map-ont", "--seed-backend", "gpu", "--device", "cpu",
-                 "--profile", "-o", str(out), ref, reads]) == 0
+    assert main(["-x", "map-ont", "--map-mode", "batch", "--seed-backend",
+                 "gpu", "--device", "cpu", "--profile", "-o", str(out), ref,
+                 reads]) == 0
     c = dict(profiling.counters)
     assert out.read_text() == base.read_text()
     assert "seed.host_frags" not in c and c["chain.wide_key"] == 6, c

@@ -69,8 +69,8 @@ def run_port(inputs, name, args, seed_gpu, **kw):
     ref, queries = inputs[name]
     out = inputs["dir"] / "port.paf"
     extra = ["--seed-backend", "gpu"] if seed_gpu else []
-    rc = port_main([*args, *extra, "--device", "cpu", "--profile", "-o",
-                    str(out), ref, *queries], **kw)
+    rc = port_main([*args, *extra, "--map-mode", "batch", "--device", "cpu",
+                    "--profile", "-o", str(out), ref, *queries], **kw)
     counters = dict(profiling.counters)
     profiling.disable()
     assert rc == 0
@@ -165,7 +165,8 @@ def test_device_seeding_without_a_card_fails_loudly(inputs, capsys):
         pytest.skip("a CUDA device is present")
     ref, queries = inputs["wl"]
     out = inputs["dir"] / "nocard.paf"
-    assert port_main(["-x", "map-ont", "--seed-backend", "gpu", "--device",
-                      "cuda", "-o", str(out), ref, *queries]) != 0
+    assert port_main(["-x", "map-ont", "--map-mode", "batch",
+                      "--seed-backend", "gpu", "--device", "cuda", "-o",
+                      str(out), ref, *queries]) != 0
     assert "torch.cuda.is_available() is False" in capsys.readouterr().err
     assert not out.exists()

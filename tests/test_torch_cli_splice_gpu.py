@@ -39,7 +39,8 @@ def run_port(args, out):
     counters, plain-exts2 calls, K4 launches)."""
     calls, launches = S.reference_calls, S.launches
     try:
-        rc = main(["-x", "splice", *args, "--align-backend", "gpu",
+        rc = main(["-x", "splice", "--map-mode", "batch", *args,
+                   "--align-backend", "gpu",
                    "--align-tpu-min-mat", "1", "--device", "cpu",
                    "--profile", "-o", str(out)])
         counters = dict(profiling.counters)

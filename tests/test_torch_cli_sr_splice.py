@@ -63,8 +63,9 @@ def run_cli(module, args):
 
 def port(preset, extra, inputs, workload):
     ref, queries = inputs[workload]
-    return run_cli("mm2tpu_torch.cli", ("-x", preset, "--device", "cpu",
-                                        *extra, ref, *queries))
+    return run_cli("mm2tpu_torch.cli", ("-x", preset, "--map-mode", "batch",
+                                        "--device", "cpu", *extra, ref,
+                                        *queries))
 
 
 def jax(preset, extra, inputs, workload):

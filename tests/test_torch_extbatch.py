@@ -156,8 +156,9 @@ def test_cli_gpu_backend_matches_host_extension(workload, tmp_path, mode):
     out = tmp_path / "port.out"
     calls, launches = X.reference_calls, X.launches
     try:
-        rc = main(["-x", "map-ont", mode, "--align-backend", "gpu",
-                   "--align-tpu-min-mat", "1", "--device", "cpu",
+        rc = main(["-x", "map-ont", "--map-mode", "batch", mode,
+                   "--align-backend", "gpu", "--align-tpu-min-mat", "1",
+                   "--device", "cpu",
                    "--profile", "-o", str(out), ref, reads])
         counters = dict(profiling.counters)
     finally:
@@ -187,8 +188,9 @@ def test_cli_default_threshold_keeps_small_fills_on_host(workload, tmp_path):
     reads stay on the host's native extension, and the counters say so."""
     ref, reads = workload
     try:
-        rc = main(["-x", "map-ont", "-a", "--align-backend", "gpu",
-                   "--device", "cpu", "--profile", "-o",
+        rc = main(["-x", "map-ont", "--map-mode", "batch", "-a",
+                   "--align-backend", "gpu", "--device", "cpu", "--profile",
+                   "-o",
                    str(tmp_path / "out.sam"), ref, reads])
         counters = dict(profiling.counters)
     finally:

@@ -295,10 +295,10 @@ def test_cli_mesh_matches_jax_mesh(workload, tmp_path):
     from mm2tpu_torch.cli import main
     ref, reads = workload
     out = {k: tmp_path / k for k in ("mesh", "one", "jax")}
-    assert main(["-x", "map-ont", "--device", "cpu", "--mesh", "2", "-o",
-                 str(out["mesh"]), ref, reads]) == 0
-    assert main(["-x", "map-ont", "--device", "cpu", "-o", str(out["one"]),
-                 ref, reads]) == 0
+    assert main(["-x", "map-ont", "--map-mode", "batch", "--device", "cpu",
+                 "--mesh", "2", "-o", str(out["mesh"]), ref, reads]) == 0
+    assert main(["-x", "map-ont", "--map-mode", "batch", "--device", "cpu",
+                 "-o", str(out["one"]), ref, reads]) == 0
     assert j_main(["-x", "map-ont", "--mesh", "2", "-o", str(out["jax"]),
                    ref, reads]) == 0
     got = out["mesh"].read_text()

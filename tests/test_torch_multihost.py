@@ -209,14 +209,14 @@ def test_cli_refuses_a_multi_part_index(tmp_path):
 
 
 @pytest.mark.parametrize("n_hosts,args,extra,n_reads", [
-    (2, ("-x", "map-ont", "-c"), (), 30),
-    (2, ("-x", "map-ont", "-a"), (), 11),
+    (2, ("-x", "map-ont", "-c"), ("--map-mode", "batch"), 30),
+    (2, ("-x", "map-ont", "-a"), ("--map-mode", "batch"), 11),
     # mini-batches of ~28 reads (-K 60k): the JAX package's buckets keep
     # the row counts of the other cases (B = 16, 32), whose interpret-mode
     # programs this process has compiled; at the default -K its B = 128
     # bucket costs minutes of compile
-    (3, ("-x", "map-ont", "-K", "60k"), (), 151),
-    (2, ("-x", "map-ont", "-c"), ("--mesh", "2"), 16),
+    (3, ("-x", "map-ont", "-K", "60k"), ("--map-mode", "batch"), 151),
+    (2, ("-x", "map-ont", "-c"), ("--map-mode", "batch", "--mesh", "2"), 16),
     (2, ("-x", "map-ont"), ("--map-mode", "stream", "-t", "2"), 30),
 ], ids=["paf-c", "sam-a", "three-hosts-151", "mesh2", "stream-t2"])
 def test_hosts_merge_equals_single_host_and_jax(mt, tmp_path, n_hosts, args,

@@ -1,6 +1,9 @@
 """mm2tpu_torch imports neither jax nor the JAX package `mm2tpu`, builds
 and loads its own native library, and `--device cuda` without a card
-fails loudly instead of falling back to the CPU."""
+fails loudly instead of falling back to the CPU. The child interpreter
+that refuses jax and mm2tpu imports every module of the port (the
+entry points and paftools among them) and runs its paths, one of them
+under `--profile-trace`."""
 import pathlib
 import subprocess
 import sys
@@ -59,46 +62,60 @@ def test_every_module_imports_and_cli_runs_without_jax(workload,
     ref, reads = workload
     (r1, r2), spliced = pairs_and_spliced
     out = {k: tmp_path / k for k in ("paf", "sam", "sr.sam", "tx.paf",
-                                     "dev.paf")}
+                                     "dev.paf", "trace.paf", "trace")}
     r = run_python(f"""
 import importlib, pkgutil
 import mm2tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(mm2tpu_torch.__path__,
                                               "mm2tpu_torch.")]
 assert len(mods) >= 30, mods
-assert {{"mm2tpu_torch.mappy", "mm2tpu_torch.parallel.multihost"}} <= \
-    set(mods), mods
+assert {{"mm2tpu_torch.mappy", "mm2tpu_torch.parallel.multihost",
+        "mm2tpu_torch.entry", "mm2tpu_torch.tools.paftools",
+        "mm2tpu_torch.tools.paftools_asm"}} <= set(mods), mods
 for m in mods:
     importlib.import_module(m)
 from mm2tpu_torch.cli import main
-rc = main(["-x", "map-ont", "--device", "cpu", "-o", {str(out["paf"])!r},
-           {ref!r}, {reads!r}])
+rc = main(["-x", "map-ont", "--map-mode", "batch", "--device", "cpu", "-o",
+           {str(out["paf"])!r}, {ref!r}, {reads!r}])
 assert rc == 0, rc
 # SAM with every extension fill through the port's batcher and extd2
-rc = main(["-x", "map-ont", "-a", "--align-backend", "gpu",
-           "--align-tpu-min-mat", "1", "--device", "cpu", "-o",
+rc = main(["-x", "map-ont", "--map-mode", "batch", "-a", "--align-backend",
+           "gpu", "--align-tpu-min-mat", "1", "--device", "cpu", "-o",
            {str(out["sam"])!r}, {ref!r}, {reads!r}])
 assert rc == 0, rc
 # read pairs (K2, two segments) with their fills on the port's extd2
-rc = main(["-x", "sr", "-a", "--align-backend", "gpu", "--device", "cpu",
-           "-o", {str(out["sr.sam"])!r}, {ref!r}, {r1!r}, {r2!r}])
+rc = main(["-x", "sr", "--map-mode", "batch", "-a", "--align-backend", "gpu",
+           "--device", "cpu", "-o", {str(out["sr.sam"])!r}, {ref!r}, {r1!r},
+           {r2!r}])
 assert rc == 0, rc
 # spliced reads (K2, cDNA scoring)
-rc = main(["-x", "splice", "--device", "cpu", "-o", {str(out["tx.paf"])!r},
-           {ref!r}, {spliced!r}])
+rc = main(["-x", "splice", "--map-mode", "batch", "--device", "cpu", "-o",
+           {str(out["tx.paf"])!r}, {ref!r}, {spliced!r}])
 assert rc == 0, rc
 # device seeding: the index probe, the anchor build and K1
 from mm2tpu_torch.ops import seed_device
-rc = main(["-x", "map-ont", "--seed-backend", "gpu", "--device", "cpu",
-           "-o", {str(out["dev.paf"])!r}, {ref!r}, {reads!r}])
+rc = main(["-x", "map-ont", "--map-mode", "batch", "--seed-backend", "gpu",
+           "--device", "cpu", "-o", {str(out["dev.paf"])!r}, {ref!r},
+           {reads!r}])
 assert rc == 0, rc
 assert all(seed_device.reference_calls.values()), seed_device.reference_calls
+# the default map mode (stream) on a pool of two, under a torch.profiler
+# trace, and paftools on the SAM
+rc = main(["-x", "map-ont", "-t", "2", "--device", "cpu", "--profile-trace",
+           {str(out["trace"])!r}, "-o", {str(out["trace.paf"])!r}, {ref!r},
+           {reads!r}])
+assert rc == 0, rc
+from mm2tpu_torch.tools import paftools
+assert paftools.main(["stat", {str(out["sam"])!r}]) == 0
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "mm2tpu")]
 assert not bad, bad
 """)
     assert r.returncode == 0, r.stderr[-3000:]
     assert len(out["paf"].read_text().splitlines()) >= 12
     assert out["dev.paf"].read_text() == out["paf"].read_text()
+    assert out["trace.paf"].read_text() == out["paf"].read_text()
+    assert len(list(out["trace"].glob("*.pt.trace.json"))) == 1
+    assert "Number of mapped sequences: 12" in r.stdout
     for k, n in (("sam", 12), ("sr.sam", 40)):
         assert sum(1 for ln in out[k].read_text().splitlines()
                    if not ln.startswith("@")) >= n
@@ -189,11 +206,12 @@ def test_mesh_cli_and_dryrun_run_without_jax(workload, tmp_path):
 import runpy
 from mm2tpu_torch.cli import main
 from mm2tpu_torch.utils import profiling
-rc = main(["-x", "map-ont", "--device", "cpu", "-o", {str(out["one.paf"])!r},
-           {ref!r}, {reads!r}])
+rc = main(["-x", "map-ont", "--map-mode", "batch", "--device", "cpu", "-o",
+           {str(out["one.paf"])!r}, {ref!r}, {reads!r}])
 assert rc == 0, rc
-rc = main(["-x", "map-ont", "--device", "cpu", "--mesh", "2", "--profile",
-           "-o", {str(out["mesh.paf"])!r}, {ref!r}, {reads!r}])
+rc = main(["-x", "map-ont", "--map-mode", "batch", "--device", "cpu",
+           "--mesh", "2", "--profile", "-o", {str(out["mesh.paf"])!r},
+           {ref!r}, {reads!r}])
 assert rc == 0, rc
 assert profiling.counters["mesh.shards"] == 2 * \
     profiling.counters["chain.launches"], profiling.counters
@@ -357,7 +375,11 @@ def test_resolve_device_is_explicit():
                  id="chain-backend-tpu"),
     pytest.param(["--map-mode", "stream", "--seed-backend", "gpu"],
                  "--map-mode batch only", 1, id="stream-seed-backend-gpu"),
-    pytest.param(["--profile-trace", "tr"], "M10", 1, id="flags6-M10-1"),
+    # --profile-trace runs now (tests/test_torch_profile_trace.py); the id
+    # is the one this case had when it expected the M10 refusal. Device
+    # seeding in the default map mode, stream, is refused naming the mode
+    pytest.param(["--profile-trace", "tr", "--seed-backend", "gpu"],
+                 "add --map-mode batch", 1, id="flags6-M10-1"),
     pytest.param(["-x", "sr", "--map-mode", "stream", "--chain-backend",
                   "tpu"], "--chain-backend gpu", 2,
                  id="sr-stream-chain-backend-tpu"),

@@ -118,8 +118,8 @@ def run_cli(module, args, out):
 def test_cli_matches_jax_batch_mode(workload, tmp_path, extra):
     ref, reads = workload
     port = run_cli("mm2tpu_torch.cli",
-                   ["-x", "map-ont", "--device", "cpu", *extra, ref, reads],
-                   tmp_path / "port.out")
+                   ["-x", "map-ont", "--map-mode", "batch", "--device", "cpu",
+                    *extra, ref, reads], tmp_path / "port.out")
     jax = run_cli("mm2tpu.cli",
                   ["-x", "map-ont", "--map-mode", "batch", *extra, ref,
                    reads], tmp_path / "jax.out")
@@ -145,8 +145,8 @@ def test_cli_chain_fn_replaces_the_chaining(workload, tmp_path):
     outs = []
     for fn in (None, plain):
         out = tmp_path / ("%s.paf" % len(outs))
-        assert main(["-x", "map-ont", "--device", "cpu", "-o", str(out), ref,
-                     reads], chain_fn=fn) == 0
+        assert main(["-x", "map-ont", "--map-mode", "batch", "--device",
+                     "cpu", "-o", str(out), ref, reads], chain_fn=fn) == 0
         outs.append(out.read_text())
     assert seen and outs[0] == outs[1]
     assert len(outs[0].splitlines()) >= 12
