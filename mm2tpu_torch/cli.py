@@ -862,48 +862,57 @@ def map_batch(mi, mo: MapOptions, batch, consume, device,
               seed_fn=None, mesh=None) -> None:
     """Batched mapping of one mini-batch (mm2tpu.cli._map_batch): paired
     orientation and INDEPEND_SEG splitting as in mm2tpu.cli; with `mesh`,
-    each bucket's rows are split over its devices."""
+    each bucket's rows are split over its devices. The assembly of the
+    tasks before `map_frags_batched`, and the regrouping and strand
+    flip-back after it, are stage `batch.assemble`; `consume` then takes
+    each fragment in order, and the results are freed (stage
+    `batch.free`)."""
     from .mapping.pipeline import map_frags_batched
 
-    tasks, meta, flips = [], [], []
-    for fi, frag in enumerate(batch):
-        flip = [len(frag) == 2 and bool((mo.pe_ori >> (1 - j)) & 1)
-                for j in range(len(frag))]
-        for j, f in enumerate(flip):
-            if f:
-                _revcomp_bseq(frag[j])
-        flips.append(flip)
-        seqs = [s.seq for s in frag]
-        if (mo.flag & MM_F_INDEPEND_SEG) and len(frag) > 1:
-            for j in range(len(frag)):
-                tasks.append(([seqs[j]], frag[j].name))
-                meta.append((fi, j))
-        else:
-            tasks.append((seqs, frag[0].name))
-            meta.append((fi, None))
+    with profiling.stage("batch.assemble"):
+        tasks, meta, flips = [], [], []
+        for fi, frag in enumerate(batch):
+            flip = [len(frag) == 2 and bool((mo.pe_ori >> (1 - j)) & 1)
+                    for j in range(len(frag))]
+            for j, f in enumerate(flip):
+                if f:
+                    _revcomp_bseq(frag[j])
+            flips.append(flip)
+            seqs = [s.seq for s in frag]
+            if (mo.flag & MM_F_INDEPEND_SEG) and len(frag) > 1:
+                for j in range(len(frag)):
+                    tasks.append(([seqs[j]], frag[j].name))
+                    meta.append((fi, j))
+            else:
+                tasks.append((seqs, frag[0].name))
+                meta.append((fi, None))
     ress = map_frags_batched(mi, [t[0] for t in tasks], mo,
                              [t[1] for t in tasks], device,
                              chain_fn=chain_fn, ext_fn=ext_fn,
                              exts2_fn=exts2_fn, seed_fn=seed_fn, mesh=mesh)
-    frag_res = {}
-    for (fi, seg), r in zip(meta, ress):
-        if seg is None or fi not in frag_res:
-            frag_res[fi] = r
-            if seg is not None:
-                r.rep_lens = [r.rep_len]
-        else:
-            frag_res[fi].regs.append(r.regs[0])
-            frag_res[fi].rep_lens.append(r.rep_len)
+    with profiling.stage("batch.assemble"):
+        frag_res = {}
+        for (fi, seg), r in zip(meta, ress):
+            if seg is None or fi not in frag_res:
+                frag_res[fi] = r
+                if seg is not None:
+                    r.rep_lens = [r.rep_len]
+            else:
+                frag_res[fi].regs.append(r.regs[0])
+                frag_res[fi].rep_lens.append(r.rep_len)
+        for fi, frag in enumerate(batch):
+            for j, f in enumerate(flips[fi]):
+                if f:
+                    _revcomp_bseq(frag[j])
+                    qlen = len(frag[j].seq)
+                    for r in frag_res[fi].regs[j]:
+                        r.qs, r.qe = qlen - r.qe, qlen - r.qs
+                        r.rev = not r.rev
     for fi, frag in enumerate(batch):
-        res = frag_res[fi]
-        seqs = [s.seq for s in frag]
-        for j, f in enumerate(flips[fi]):
-            if f:
-                _revcomp_bseq(frag[j])
-                for r in res.regs[j]:
-                    r.qs, r.qe = len(seqs[j]) - r.qe, len(seqs[j]) - r.qs
-                    r.rev = not r.rev
-        consume(frag, res)
+        consume(frag, frag_res[fi])
+    with profiling.stage("batch.free"):   # the results, emitted
+        frag_res.clear()
+        ress.clear()
 
 
 def map_one_frag(mi, mo: MapOptions, frag, device):

@@ -15,6 +15,7 @@ from typing import List, Tuple
 
 import numpy as np
 
+from ..utils import profiling
 from ..utils.hashing import hash64
 
 U64MAX = 0xFFFFFFFFFFFFFFFF
@@ -123,16 +124,23 @@ def sketch(seq: str | bytes | np.ndarray, w: int, k: int, rid: int,
     return out
 
 
-def sketch_np(seq, w, k, rid, is_hpc=False) -> np.ndarray:
+def sketch_np(seq, w, k, rid, is_hpc=False,
+              native_stage=None) -> np.ndarray:
     """sketch() returning a (n,2) uint64 array [[x, y], ...]. Uses the
-    native runtime when built (differentially tested against sketch())."""
+    native runtime when built (differentially tested against sketch()),
+    its call timed under `native_stage` (`profiling.timed`) where one is
+    given; each run of sketch() in its place counts as `fallback.sketch`."""
     codes = seq if isinstance(seq, np.ndarray) else encode_nt4(seq)
     try:
         from ..native import lib as native_lib
         if native_lib.available():
-            return native_lib.sketch(codes, w, k, rid, is_hpc)
+            if native_stage is None:
+                return native_lib.sketch(codes, w, k, rid, is_hpc)
+            return profiling.timed(native_stage, native_lib.sketch, codes,
+                                   w, k, rid, is_hpc)
     except Exception:
         pass
+    profiling.count("fallback.sketch")
     mm = sketch(codes, w, k, rid, is_hpc)
     if not mm:
         return np.zeros((0, 2), dtype=np.uint64)

@@ -10,6 +10,7 @@ from typing import List
 
 import numpy as np
 
+from ..utils import profiling
 from .hit import Region, _i32, _i32v
 
 f32 = np.float32
@@ -65,14 +66,17 @@ def _native():
 
 def est_err(mi, qlen: int, regs: List[Region], a: np.ndarray,
             mini_pos: np.ndarray) -> None:
-    """mm_est_err (esterr.c:30-64): sets Region.div."""
+    """mm_est_err (esterr.c:30-64): sets Region.div. The native call's
+    time is `post.native`; each run of `est_err_py` in its place counts
+    as `fallback.est_err`."""
     n = len(mini_pos)
     if n == 0:
         return
     nat = _native()
     if nat and regs:
         nr = len(regs)
-        div = nat.est_err_div(
+        div = profiling.timed(
+            "post.native", nat.est_err_div,
             qlen,
             np.fromiter((r.as_ for r in regs), np.int64, nr),
             np.fromiter((r.cnt for r in regs), np.int32, nr),
@@ -85,6 +89,8 @@ def est_err(mi, qlen: int, regs: List[Region], a: np.ndarray,
         for r, d in zip(regs, div.tolist()):
             r.div = d
         return
+    if not nat:
+        profiling.count("fallback.est_err")
     est_err_py(mi, qlen, regs, a, mini_pos)
 
 

@@ -13,6 +13,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from ..utils import profiling
 from ..utils.hashing import hash64
 from ..options import (MapOptions,
                        MM_SEED_LONG_JOIN, MM_F_ALL_CHAINS, MM_F_SPLICE,
@@ -195,19 +196,25 @@ def gen_regs_chain_post_fast(hash_: int, qlen: int, u: np.ndarray,
     repeat-dense candidate regions never materialize in Python).
     Caller guarantees: single segment, no ALT contigs, not ALL_CHAINS,
     regions carry no alignment Extra yet. Returns a reg list or None when
-    the native runtime is unavailable."""
+    the native runtime is unavailable, counted as `fallback.gen_regs_fast`
+    (the caller then runs the Python path); the two native calls' time
+    is `post.native`."""
     try:
         from ..native import lib as native_lib
         if not native_lib.has_set_parent():
+            profiling.count("fallback.gen_regs_fast")
             return None
     except ImportError:
+        profiling.count("fallback.gen_regs_fast")
         return None
     n_u = len(u)
     if n_u == 0:
         return []
     (score, hash_out, cnt, as_, rev, rid, rs, re, qs, qe, mlen,
-     blen) = native_lib.gen_regs_arrays(u, a, hash_, qlen)
-    keep, parent, n_sub, subsc, sam_pri = native_lib.set_parent_select(
+     blen) = profiling.timed("post.native", native_lib.gen_regs_arrays,
+                             u, a, hash_, qlen)
+    keep, parent, n_sub, subsc, sam_pri = profiling.timed(
+        "post.native", native_lib.set_parent_select,
         score, qs, qe, cnt, rid, rs, re, float(opt.mask_level),
         opt.mask_len, opt.a * 2 + opt.b,
         bool(opt.flag & MM_F_HARD_MLEVEL), float(opt.pri_ratio),

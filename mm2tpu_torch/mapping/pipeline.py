@@ -104,28 +104,47 @@ class _FragCtx:
     gap_ref: int
 
 
-def _prepare(mi: MMIndex, seqs: Sequence[str], opt: MapOptions,
-             qname: Optional[str], seed_hits: bool = True):
-    """Seeding stage of mm_map_frag (map.c:272-316). Returns a _FragCtx,
-    or a final FragResult for degenerate inputs. With seed_hits=False
-    only the minimizers are collected (ctx.sr stays None — the batched
-    device-seeding path fills it from the chip)."""
+def _frag_ctx(seqs: Sequence[str], opt: MapOptions,
+              qname: Optional[str]):
+    """The prologue of mm_map_frag (map.c:272-316) before seeding: a
+    _FragCtx whose minimizers and seed hits are still None, or a final
+    FragResult for degenerate inputs."""
     n_segs = len(seqs)
     qlens = [len(s) for s in seqs]
     qlen_sum = sum(qlens)
     if qlen_sum == 0 or n_segs <= 0 or n_segs > MM_MAX_SEG or \
             (opt.max_qlen > 0 and qlen_sum > opt.max_qlen):
         return FragResult(regs=[[] for _ in range(max(n_segs, 0))])
-    hash_ = reg_hash(qname, qlen_sum, opt.seed)
-    with profiling.stage("seed"):
-        mv = collect_minimizers(mi, opt, seqs, qlens)
-        sr = (collect_seed_hits(mi, opt, opt.mid_occ, mv, qname, qlen_sum)
-              if seed_hits else None)
     gap_qry, gap_ref = chain_gaps(opt, qlen_sum)
     return _FragCtx(seqs=seqs, qlens=qlens, qlen_sum=qlen_sum, qname=qname,
-                    hash_=hash_, is_splice=bool(opt.flag & MM_F_SPLICE),
+                    hash_=reg_hash(qname, qlen_sum, opt.seed),
+                    is_splice=bool(opt.flag & MM_F_SPLICE),
                     is_sr=bool(opt.flag & MM_F_SR), n_segs=n_segs,
-                    mv=mv, sr=sr, gap_qry=gap_qry, gap_ref=gap_ref)
+                    mv=None, sr=None, gap_qry=gap_qry, gap_ref=gap_ref)
+
+
+def _seed_ctx(mi: MMIndex, ctx: _FragCtx, opt: MapOptions,
+              seed_hits: bool = True) -> None:
+    """The seeding of mm_map_frag (stage `seed`): fills ctx.mv and, with
+    seed_hits, ctx.sr (else ctx.sr stays None — the batched
+    device-seeding path fills it from the chip)."""
+    with profiling.stage("seed"):
+        ctx.mv = collect_minimizers(mi, opt, ctx.seqs, ctx.qlens)
+        if seed_hits:
+            ctx.sr = collect_seed_hits(mi, opt, opt.mid_occ, ctx.mv,
+                                       ctx.qname, ctx.qlen_sum)
+
+
+def _prepare(mi: MMIndex, seqs: Sequence[str], opt: MapOptions,
+             qname: Optional[str], seed_hits: bool = True):
+    """Seeding stage of mm_map_frag (map.c:272-316): `_frag_ctx` (stage
+    `seed.prep`), then `_seed_ctx`. Returns the _FragCtx, or a final
+    FragResult for degenerate inputs."""
+    with profiling.stage("seed.prep"):
+        prep = _frag_ctx(seqs, opt, qname)
+    if isinstance(prep, _FragCtx):
+        _seed_ctx(mi, prep, opt, seed_hits)
+    return prep
 
 
 def _chain_ctx(ctx: _FragCtx, opt: MapOptions, anchors: np.ndarray,
@@ -191,9 +210,10 @@ def map_frag(mi: MMIndex, seqs: Sequence[str], opt: MapOptions,
         for i in range(len(ctx.sr.anchors)):
             _dump_anchor(("SD",), mi, ctx.sr.anchors, i, i == 0)
     a, u = _chain_ctx(ctx, opt, ctx.sr.anchors, device)
-    if _needs_rechain(ctx, opt, a, u):
-        if profiling.enabled:
-            profiling.count("chain.rechained")
+    with profiling.stage("chain.rechain"):
+        rechain = _needs_rechain(ctx, opt, a, u)
+    if rechain:
+        profiling.count("chain.rechained")
         ctx.sr = collect_seed_hits(mi, opt, opt.max_occ, ctx.mv, qname,
                                    ctx.qlen_sum)
         a, u = _chain_ctx(ctx, opt, ctx.sr.anchors, device)
@@ -203,63 +223,77 @@ def map_frag(mi: MMIndex, seqs: Sequence[str], opt: MapOptions,
 
 def _post_chain(mi: MMIndex, ctx: _FragCtx, opt: MapOptions,
                 a: np.ndarray, u: np.ndarray) -> FragResult:
-    """Everything after chaining (map.c:344-391)."""
-    n_segs, qlens, qlen_sum = ctx.n_segs, ctx.qlens, ctx.qlen_sum
-    seqs, hash_, sr, is_sr = ctx.seqs, ctx.hash_, ctx.sr, ctx.is_sr
-    max_chain_gap_ref = ctx.gap_ref
-    res = FragResult(regs=[[] for _ in range(n_segs)])
-    res.rep_len = sr.rep_len
-    res.frag_gap = max_chain_gap_ref
+    """Everything after chaining (map.c:344-391): the regions
+    (`_post_regions`), their alignment (`_post_align`), then mapq,
+    pairing and the result (`_post_finish`, stage `post.finish`)."""
+    regss = _post_align(mi, ctx, opt, _post_regions(mi, ctx, opt, a, u), a)
+    with profiling.stage("post.finish"):
+        return _post_finish(ctx, opt, regss, a)
 
-    from ..options import MM_F_ALL_CHAINS as _ALL
-    fast = None
+
+def _post_regions(mi: MMIndex, ctx: _FragCtx, opt: MapOptions,
+                  a: np.ndarray, u: np.ndarray) -> List[Region]:
+    """The chains' regions, post-chained, with their divergence (map.c:
+    344-375; stage `post`)."""
+    n_segs, qlens, qlen_sum = ctx.n_segs, ctx.qlens, ctx.qlen_sum
+    hash_, sr, is_sr = ctx.hash_, ctx.sr, ctx.is_sr
     if (not mi.n_alt and n_segs == 1 and not opt.dbg_print_seed and
-            not (opt.flag & _ALL)):
+            not (opt.flag & MM_F_ALL_CHAINS)):
         with profiling.stage("post"):
             fast = hit_mod.gen_regs_chain_post_fast(
                 hash_, qlen_sum, u, a, opt, mi.k * 2)
-    if fast is not None:
-        with profiling.stage("post"):
-            regs0 = hit_mod.chain_post_tail(fast, opt, qlen_sum, a)
-            if not is_sr:
-                est_err(mi, qlen_sum, regs0, a, sr.mini_pos)
-    else:
-        regs0 = hit_mod.gen_regs(hash_, qlen_sum, u, a)
-        if mi.n_alt:
-            hit_mod.mark_alt(mi, regs0)
-            regs0 = hit_mod.hit_sort(regs0, opt.alt_drop)
-        if opt.dbg_print_seed:
-            for j, r in enumerate(regs0):
-                for i in range(r.as_, r.as_ + r.cnt):
-                    _dump_anchor(("CN", j), mi, a, i, i == r.as_)
+            if fast is not None:
+                regs0 = hit_mod.chain_post_tail(fast, opt, qlen_sum, a)
+                if not is_sr:
+                    est_err(mi, qlen_sum, regs0, a, sr.mini_pos)
+                return regs0
+    regs0 = hit_mod.gen_regs(hash_, qlen_sum, u, a)
+    if mi.n_alt:
+        hit_mod.mark_alt(mi, regs0)
+        regs0 = hit_mod.hit_sort(regs0, opt.alt_drop)
+    if opt.dbg_print_seed:
+        for j, r in enumerate(regs0):
+            for i in range(r.as_, r.as_ + r.cnt):
+                _dump_anchor(("CN", j), mi, a, i, i == r.as_)
 
-        with profiling.stage("post"):
-            regs0 = hit_mod.chain_post(regs0, opt, max_chain_gap_ref, mi,
-                                       qlen_sum, n_segs, qlens, a)
-            if not is_sr:
-                est_err(mi, qlen_sum, regs0, a, sr.mini_pos)
+    with profiling.stage("post"):
+        regs0 = hit_mod.chain_post(regs0, opt, ctx.gap_ref, mi, qlen_sum,
+                                   n_segs, qlens, a)
+        if not is_sr:
+            est_err(mi, qlen_sum, regs0, a, sr.mini_pos)
+    return regs0
 
-    if n_segs == 1:
-        regs0 = _align_regs(mi, opt, qlens[0], seqs[0], regs0, a)
-        hit_mod.set_mapq(regs0, opt.min_chain_score, opt.a, sr.rep_len, is_sr)
-        res.regs[0] = regs0
-    else:
-        from .seg import seg_gen
-        segs = seg_gen(hash_, qlens, regs0, a)
-        for i in range(n_segs):
-            regs_i = segs[i].regs
-            hit_mod.set_parent(regs_i, opt.mask_level, opt.mask_len,
-                               opt.a * 2 + opt.b,
-                               bool(opt.flag & MM_F_HARD_MLEVEL), opt.alt_drop)
-            regs_i = _align_regs(mi, opt, qlens[i], seqs[i], regs_i, segs[i].a)
-            hit_mod.set_mapq(regs_i, opt.min_chain_score, opt.a, sr.rep_len, is_sr)
-            res.regs[i] = regs_i
-        if n_segs == 2 and opt.pe_ori >= 0 and (opt.flag & MM_F_CIGAR):
-            from .pe import pair
-            pair(max_chain_gap_ref, opt.pe_bonus, opt.a * 2 + opt.b, opt.a,
-                 qlens, res.regs)
-    res.anchors = a
-    return res
+
+def _post_align(mi: MMIndex, ctx: _FragCtx, opt: MapOptions,
+                regs0: List[Region], a: np.ndarray) -> List[List[Region]]:
+    """Each segment's regions, aligned with CIGARs on (stage `align`):
+    a fragment of several segments is split and its parents set first
+    (map.c:376-386)."""
+    if ctx.n_segs == 1:
+        return [_align_regs(mi, opt, ctx.qlens[0], ctx.seqs[0], regs0, a)]
+    from .seg import seg_gen
+    segs = seg_gen(ctx.hash_, ctx.qlens, regs0, a)
+    for seg in segs:
+        hit_mod.set_parent(seg.regs, opt.mask_level, opt.mask_len,
+                           opt.a * 2 + opt.b,
+                           bool(opt.flag & MM_F_HARD_MLEVEL), opt.alt_drop)
+    return [_align_regs(mi, opt, ctx.qlens[i], ctx.seqs[i], seg.regs, seg.a)
+            for i, seg in enumerate(segs)]
+
+
+def _post_finish(ctx: _FragCtx, opt: MapOptions, regss: List[List[Region]],
+                 a: np.ndarray) -> FragResult:
+    """Each segment's mapq, the pairing of two, the result (map.c:
+    377-391)."""
+    sr = ctx.sr
+    for regs in regss:
+        hit_mod.set_mapq(regs, opt.min_chain_score, opt.a, sr.rep_len,
+                         ctx.is_sr)
+    if ctx.n_segs == 2 and opt.pe_ori >= 0 and (opt.flag & MM_F_CIGAR):
+        from .pe import pair
+        pair(ctx.gap_ref, opt.pe_bonus, opt.a * 2 + opt.b, opt.a, ctx.qlens,
+             regss)
+    return FragResult(regss, sr.rep_len, ctx.gap_ref, a)
 
 
 def _align_regs(mi: MMIndex, opt: MapOptions, qlen: int, seq: str,
@@ -314,6 +348,16 @@ def _count_host_fills():
     finally:
         for name, fn in saved.items():
             setattr(native, name, fn)
+
+
+def _v_carry(native_v: bool, f: np.ndarray, p: np.ndarray) -> np.ndarray:
+    """A chained row's carried scores: on the native runtime where it is
+    `native_v` (its time `post.native`), else on the host's NumPy twin,
+    counted as `fallback.v_carry`."""
+    if native_v:
+        return profiling.timed("post.native", native.v_carry, f, p)
+    profiling.count("fallback.v_carry")
+    return v_carry_host(f[None], p[None])[0]
 
 
 def _seed_device_eligible(opt: MapOptions, ctx: _FragCtx) -> bool:
@@ -559,10 +603,7 @@ def _seed_device_round(mi: MMIndex, opt: MapOptions, ctxs: dict,
                                         len(ctxs[i].mv))
                 count_wide([a])
                 p = unpack_prel(prel[r], total)
-                if native_v:
-                    v = native.v_carry(f[r, :total], p)
-                else:
-                    v = v_carry_host(f[r:r + 1, :total], p[None])[0]
+                v = _v_carry(native_v, f[r, :total], p)
                 outs[i] = chain_ref.chain_backtrack(
                     total, f[r, :total], p, v, a, opt.min_cnt,
                     opt.min_chain_score)
@@ -641,7 +682,14 @@ def map_frags_batched(mi: MMIndex, frag_seqs: Sequence[Sequence[str]],
 
     A task whose span sum (`ops.chain_packed.score_bound`) could wrap
     K1/K2's int32 key is keyed in int64 by the kernels themselves, on
-    every path; `--profile` counts it as `chain.wide_key`."""
+    every path; `--profile` counts it as `chain.wide_key`.
+
+    The host work between the stages above is in leaf stages of its own:
+    `seed.prep` (every read's prologue, one range a batch), `chain.plan`
+    (a round's buckets), `chain.rechain` (the re-seed test; the re-seeded
+    reads count as `chain.rechained`), `post.finish` (without the
+    thread pool, every read's tail in one range) and `batch.free` (the
+    reads' seeding and chaining state dropped)."""
     if opt.seed_backend == "tpu":
         raise NotImplementedError(
             "--seed-backend tpu runs the JAX package's device seeding; the "
@@ -659,17 +707,19 @@ def map_frags_batched(mi: MMIndex, frag_seqs: Sequence[Sequence[str]],
         if mesh[0] != dev:
             raise ValueError("the run's device %s is not the mesh's first, "
                              "%s" % (dev, mesh[0]))
-    results: List[Optional[FragResult]] = [None] * len(frag_seqs)
-    ctxs: dict = {}
-    pending: List[int] = []
     use_dev_seed = opt.seed_backend == "gpu"
-    for i, (seqs, qname) in enumerate(zip(frag_seqs, qnames)):
-        prep = _prepare(mi, seqs, opt, qname, seed_hits=not use_dev_seed)
-        if isinstance(prep, FragResult):
-            results[i] = prep
-        else:
-            ctxs[i] = prep
-            pending.append(i)
+    with profiling.stage("seed.prep"):
+        # a degenerate read's final result, or its context
+        results: List[Optional[FragResult]] = [
+            _frag_ctx(seqs, opt, qname)
+            for seqs, qname in zip(frag_seqs, qnames)]
+        ctxs = {i: c for i, c in enumerate(results)
+                if isinstance(c, _FragCtx)}
+        for i in ctxs:
+            results[i] = None
+    pending: List[int] = list(ctxs)
+    for i in pending:
+        _seed_ctx(mi, ctxs[i], opt, seed_hits=not use_dev_seed)
     native_v = native.available()
     empty = np.zeros((0, 2), np.uint64)
 
@@ -677,21 +727,22 @@ def map_frags_batched(mi: MMIndex, frag_seqs: Sequence[Sequence[str]],
         outs = {}
         groups: dict = {}
         iter_cap = min(WINDOW, opt.max_chain_iter)
-        for i in idxs:
-            ctx = ctxs[i]
-            n = len(ctx.sr.anchors)
-            if n == 0:
-                outs[i] = (np.zeros((0, 2), np.uint64),
-                           np.zeros(0, np.uint64))
-                continue
-            key = (ctx.gap_ref, ctx.gap_qry, opt.bw, iter_cap,
-                   float(opt.chain_gap_scale), ctx.is_splice, ctx.n_segs,
-                   bucket_for(n))
-            groups.setdefault(key, []).append(i)
-        plan = []
-        for key, members in groups.items():
-            for off in range(0, len(members), B_SIZES[-1]):
-                plan.append((key, members[off:off + B_SIZES[-1]]))
+        with profiling.stage("chain.plan"):
+            for i in idxs:
+                ctx = ctxs[i]
+                n = len(ctx.sr.anchors)
+                if n == 0:
+                    outs[i] = (np.zeros((0, 2), np.uint64),
+                               np.zeros(0, np.uint64))
+                    continue
+                key = (ctx.gap_ref, ctx.gap_qry, opt.bw, iter_cap,
+                       float(opt.chain_gap_scale), ctx.is_splice,
+                       ctx.n_segs, bucket_for(n))
+                groups.setdefault(key, []).append(i)
+            plan = []
+            for key, members in groups.items():
+                for off in range(0, len(members), B_SIZES[-1]):
+                    plan.append((key, members[off:off + B_SIZES[-1]]))
 
         def dispatch(job):
             key, chunk = job
@@ -745,8 +796,6 @@ def map_frags_batched(mi: MMIndex, frag_seqs: Sequence[Sequence[str]],
             chunk, out, spans, raw_p = item
             with profiling.stage("chain.device"):
                 f, pr = (t.numpy() for t in out.result())
-            if profiling.enabled:
-                profiling.count("chain.bytes_down", f.nbytes + pr.nbytes)
             if spans:
                 # the kernel launches' own spans (`ops.card_spans`)
                 profiling.add("chain.gpu_busy", span_seconds(spans))
@@ -755,10 +804,7 @@ def map_frags_batched(mi: MMIndex, frag_seqs: Sequence[Sequence[str]],
                     anchors = ctxs[i].sr.anchors
                     n = len(anchors)
                     p = pr[row, :n] if raw_p else unpack_prel(pr[row], n)
-                    if native_v:
-                        v = native.v_carry(f[row, :n], p)
-                    else:
-                        v = v_carry_host(f[row:row + 1, :n], p[None])[0]
+                    v = _v_carry(native_v, f[row, :n], p)
                     outs[i] = chain_ref.chain_backtrack(
                         n, f[row, :n], p, v, anchors,
                         opt.min_cnt, opt.min_chain_score)
@@ -791,14 +837,13 @@ def map_frags_batched(mi: MMIndex, frag_seqs: Sequence[Sequence[str]],
             outs.update(run_round(rest))
         else:
             outs = run_round(pending)
-        rechain = []
-        for i in pending:
-            a, u = outs[i]
-            if _needs_rechain(ctxs[i], opt, a, u):
-                ctxs[i].sr = collect_seed_hits(mi, opt, opt.max_occ,
-                                               ctxs[i].mv, ctxs[i].qname,
-                                               ctxs[i].qlen_sum)
-                rechain.append(i)
+        with profiling.stage("chain.rechain"):
+            rechain = [i for i in pending
+                       if _needs_rechain(ctxs[i], opt, *outs[i])]
+        for i in rechain:   # re-seeded (stage seed.hits) and chained again
+            profiling.count("chain.rechained")
+            ctxs[i].sr = collect_seed_hits(mi, opt, opt.max_occ, ctxs[i].mv,
+                                           ctxs[i].qname, ctxs[i].qlen_sum)
         if rechain:
             outs.update(run_round(rechain))
     if opt.align_backend == "gpu" and (opt.flag & MM_F_CIGAR) and pending:
@@ -816,7 +861,15 @@ def map_frags_batched(mi: MMIndex, frag_seqs: Sequence[Sequence[str]],
             for i, res in zip(pending, ex.map(post_one, pending)):
                 results[i] = res
     else:
-        for i in pending:
-            a, u = outs[i]
-            results[i] = _post_chain(mi, ctxs[i], opt, a, u)
+        # every read's regions and alignment, then all their tails in one
+        # `post.finish` range
+        regss = [_post_align(mi, ctxs[i], opt,
+                             _post_regions(mi, ctxs[i], opt, *outs[i]),
+                             outs[i][0]) for i in pending]
+        with profiling.stage("post.finish"):
+            for i, regs in zip(pending, regss):
+                results[i] = _post_finish(ctxs[i], opt, regs, outs[i][0])
+    with profiling.stage("batch.free"):   # the reads' seeds and chains
+        ctxs.clear()
+        outs.clear()
     return results

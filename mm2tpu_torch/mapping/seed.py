@@ -20,6 +20,7 @@ from ..index.sketch import sketch_np
 from ..options import (MapOptions, MM_F_NO_DIAG, MM_F_NO_DUAL, MM_F_FOR_ONLY,
                        MM_F_REV_ONLY, MM_SEED_TANDEM, MM_SEED_SELF,
                        MM_SEED_SEG_SHIFT)
+from ..utils import profiling
 
 U64 = np.uint64
 
@@ -35,24 +36,38 @@ class SeedResult:
 def collect_minimizers(mi: MMIndex, opt: MapOptions, seqs: Sequence[str],
                        qlens: Sequence[int]) -> np.ndarray:
     """Per-segment sketch with cumulative query-offset shift
-    (map.c:64-77). SDUST masking (sdust_thres>0) applied per segment."""
-    chunks = []
-    total = 0
-    for sid, (s, ql) in enumerate(zip(seqs, qlens)):
-        mm = sketch_np(s, mi.w, mi.k, sid, bool(mi.flag & 0x1))
-        if len(mm):
-            mm[:, 1] += U64(total << 1)
-        if opt.sdust_thres > 0 and len(mm):
-            from .sdust import dust_minimizers
-            mm = dust_minimizers(mm, s, opt.sdust_thres)
-        chunks.append(mm)
-        total += ql
-    return np.concatenate(chunks, axis=0) if chunks else np.zeros((0, 2), U64)
+    (map.c:64-77). SDUST masking (sdust_thres>0) applied per segment.
+    Stage `seed.sketch`; the native sketch's own time is `seed.native`."""
+    with profiling.stage("seed.sketch"):
+        chunks = []
+        total = 0
+        for sid, (s, ql) in enumerate(zip(seqs, qlens)):
+            mm = sketch_np(s, mi.w, mi.k, sid, bool(mi.flag & 0x1),
+                           native_stage="seed.native")
+            if len(mm):
+                mm[:, 1] += U64(total << 1)
+            if opt.sdust_thres > 0 and len(mm):
+                from .sdust import dust_minimizers
+                mm = dust_minimizers(mm, s, opt.sdust_thres)
+            chunks.append(mm)
+            total += ql
+        return (np.concatenate(chunks, axis=0) if chunks
+                else np.zeros((0, 2), U64))
 
 
 def collect_seed_hits(mi: MMIndex, opt: MapOptions, max_occ: int,
                       mv: np.ndarray, qname: Optional[str], qlen: int) -> SeedResult:
-    """collect_matches + collect_seed_hits (map.c:90-123, 215-247)."""
+    """collect_matches + collect_seed_hits (map.c:90-123, 215-247).
+    Stage `seed.hits`; the native one-pass call's own time is
+    `seed.native`, and each run of the NumPy path where that call would
+    have run counts as `fallback.seed_hits`."""
+    with profiling.stage("seed.hits"):
+        return _collect_seed_hits(mi, opt, max_occ, mv, qname, qlen)
+
+
+def _collect_seed_hits(mi: MMIndex, opt: MapOptions, max_occ: int,
+                       mv: np.ndarray, qname: Optional[str],
+                       qlen: int) -> SeedResult:
     n_mv = len(mv)
     if n_mv == 0:
         return SeedResult(np.zeros((0, 2), U64), 0, np.zeros(0, U64), 0)
@@ -69,12 +84,14 @@ def collect_seed_hits(mi: MMIndex, opt: MapOptions, max_occ: int,
                 skip_mode = (1 if (opt.flag & MM_F_FOR_ONLY) else
                              2 if (opt.flag & MM_F_REV_ONLY) else 0)
                 bits, shift, lut = mi._native_lut()
-                a, rep_len, mini_pos = native_lib.seed_hits(
-                    mv, mi.keys, mi.start, mi.cnt, bits, shift, lut,
-                    mi.pos, max_occ, qlen, skip_mode, cache_obj=mi)
+                a, rep_len, mini_pos = profiling.timed(
+                    "seed.native", native_lib.seed_hits, mv, mi.keys,
+                    mi.start, mi.cnt, bits, shift, lut, mi.pos, max_occ,
+                    qlen, skip_mode, cache_obj=mi)
                 return SeedResult(a, rep_len, mini_pos, n_mv)
         except Exception:
             pass
+        profiling.count("fallback.seed_hits")
     miniers = mv[:, 0] >> U64(8)
     q_pos = (mv[:, 1] & U64(0xFFFFFFFF)).astype(np.int64)
     q_span = (mv[:, 0] & U64(0xFF)).astype(np.int64)

@@ -246,8 +246,6 @@ def chain_scores_task(a: np.ndarray, max_dist_x: int, max_dist_y: int,
         p = p[:, :n].cpu().numpy().astype(np.int64)
     if spans:
         profiling.add("chain.gpu_busy", span_seconds(spans))
-    if profiling.enabled:
-        profiling.count("chain.bytes_down", 8 * n)
     v = v_carry_host(f, p)
     return f[0], p[0], v[0]
 

@@ -23,6 +23,7 @@ from typing import Tuple
 import numpy as np
 
 from ..options import MM_SEED_SEG_MASK, MM_SEED_SEG_SHIFT
+from ..utils import profiling
 
 MAX_TRIPCOUNT = 1024
 TRIPCOUNT_PER_SUBPART = 128
@@ -248,16 +249,19 @@ def chain_backtrack(n: int, f: np.ndarray, p: np.ndarray, v: np.ndarray,
                     ) -> Tuple[np.ndarray, np.ndarray]:
     """Chain-end detection, peak backtrack, compaction and position re-sort
     (chain.c:348-422). Returns (b, u): b = compacted anchors, u[i] =
-    score<<32 | cnt per chain, ordered by chain start position."""
+    score<<32 | cnt per chain, ordered by chain start position. The
+    native call's time is `post.native`; each run of the NumPy path in
+    its place counts as `fallback.backtrack`."""
     if n == 0:
         return np.zeros((0, 2), np.uint64), np.zeros(0, np.uint64)
     try:
         from ..native import lib as native_lib
         if native_lib.has_backtrack():
-            return native_lib.chain_backtrack(n, f, p, v, a, min_cnt,
-                                              min_sc)
+            return profiling.timed("post.native", native_lib.chain_backtrack,
+                                   n, f, p, v, a, min_cnt, min_sc)
     except ImportError:
         pass
+    profiling.count("fallback.backtrack")
     t = np.zeros(n, dtype=np.int64)
     used = p[p >= 0]
     t[used] = 1

@@ -750,7 +750,7 @@ def extd2_traced(lens, tsf, qcol, *, q: int, e: int, q2: int, e2: int,
     return ez, ops, ij[:, 0], ij[:, 1]
 
 
-def run_packed(pk: Packed, device, call, cells: float):
+def run_packed(pk: Packed, device, call):
     """Upload the packed planes of one flush to `device`, run
     `call(*planes)` -> (ez, ops, i_fin, j_fin) there and bring the four
     back as numpy arrays. Under --profile, count the flush (`ext.*`) and
@@ -770,9 +770,6 @@ def run_packed(pk: Packed, device, call, cells: float):
     if profiling.enabled:  # align-stage transport evidence
         profiling.count("ext.dispatches", 1)
         profiling.count("ext.fills", len(pk.run_idx))
-        profiling.count("ext.bytes_up", sum(a.nbytes for a in arrays))
-        profiling.count("ext.bytes_down", sum(a.nbytes for a in out))
-        profiling.count("ext.cells", float(cells))
         if spans:
             # the kernel launch's own span (`ops.card_spans`)
             profiling.add("ext.gpu_busy", span_seconds(spans))
@@ -806,8 +803,6 @@ def extd2_batch(tasks: Sequence[tuple], mat, q: int, e: int, q2: int,
     run_idx = pk.run_idx
     if not run_idx:
         return results
-    cells = sum((min(2 * w + 1, len(tasks[i][0])) if w >= 0
-                 else len(tasks[i][0])) * len(tasks[i][1]) for i in run_idx)
     record_stamps(None)
     ez, ops, i_f, j_f = run_packed(pk, device, lambda *planes: fn(
         *planes, q=q, e=e, q2=q2, e2=e2, zdrop=zdrop, sc_mch=pk.sc_mch,
@@ -815,7 +810,7 @@ def extd2_batch(tasks: Sequence[tuple], mat, q: int, e: int, q2: int,
         approx=bool(flag & KSW_EZ_APPROX_MAX),
         approx_drop=bool(flag & KSW_EZ_APPROX_DROP),
         extz_only=bool(flag & KSW_EZ_EXTZ_ONLY), end_bonus=int(end_bonus),
-        lens_h=pk.lens), cells)
+        lens_h=pk.lens))
     if profiling.enabled:
         # the flush's serial rows (its longest fill's) and the fills that
         # the kernel runs on state in device memory

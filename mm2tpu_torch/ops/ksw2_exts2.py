@@ -530,14 +530,13 @@ def exts2_batch(tasks: Sequence[tuple], mat, q: int, e: int, q2: int,
     run_idx = pk.run_idx
     if not run_idx:
         return results
-    cells = sum(len(tasks[i][0]) * len(tasks[i][1]) for i in run_idx)
     record_stamps(None)
     ez, ops, i_f, j_f = run_packed(pk, device, lambda *planes: fn(
         *planes, q=q, e=e, q2=q2, zdrop=zdrop, sc_mch=pk.sc_mch,
         sc_mis=pk.sc_mis, sc_N=pk.sc_N, right=bool(flag & KSW_EZ_RIGHT),
         approx=bool(flag & KSW_EZ_APPROX_MAX),
         approx_drop=bool(flag & KSW_EZ_APPROX_DROP),
-        extz_only=bool(flag & KSW_EZ_EXTZ_ONLY), lens_h=pk.lens), cells)
+        extz_only=bool(flag & KSW_EZ_EXTZ_ONLY), lens_h=pk.lens))
     if profiling.enabled:
         # the flush's serial rows (its longest fill's) and the fills that
         # the kernel runs on state in device memory

@@ -12,7 +12,9 @@ the mapping loop into DIR, in TensorBoard's layout (one
 `*.pt.trace.json` a process, which Perfetto and chrome://tracing also
 open).
 
-Overhead when disabled: one module-bool check per stage entry.
+Overhead when disabled: one module-bool check per stage entry, which
+then returns the shared no-op context `NO_STAGE`, and one per `timed`
+call, which then calls straight through.
 
 The port's copy of `mm2tpu/utils/profiling.py`, verbatim apart from its
 imports, the lock in `add` and the trace: where the JAX
@@ -21,15 +23,20 @@ package takes a `jax.profiler` trace, `trace_if_enabled` takes a
 (each kernel launch of the port's library is a named device event),
 from every thread (`profile_all_threads`: the `-t` pool of stream mode
 and the extension batcher's align threads map off the main thread),
-without shapes or stacks. While it runs, `stage(name)` also opens
-`torch.profiler.record_function(name)`, so the trace shows the stage
-names of the `--profile` table.
+without shapes or stacks. While it runs, `stage(name)` also opens a
+`record_function` range of its name (through the two operators that
+`torch.profiler.record_function` calls), so the trace shows the stage
+names of the `--profile` table. `timed(name, fn, ...)` adds a call's
+seconds to the table under `name` and opens no range: the calls into
+the native runtime (`seed.native`, `post.native`) nest inside ranges
+the trace already has. `count("fallback.<op>")` counts each run of a
+Python twin where the native runtime would have run the call.
 """
 from __future__ import annotations
 
 import sys
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from typing import Dict, List, Optional, Tuple
 
 import threading as _threading
@@ -48,10 +55,10 @@ def reset() -> None:
 
 
 def count(name: str, v: float = 1.0) -> None:
-    """Accumulate a quantity (launch counts, wire bytes, anchors) under
-    `name` — the evidence feed for bench.py's device-path accounting
-    (the reference's MEASURE_CHAINING_TIME_HW_FINE analogue). Locked:
-    callers include ExtBatcher worker threads and -t N mapping threads."""
+    """Accumulate a quantity (launches, anchors, fills, fall-backs to
+    Python) under `name`, printed by `report` and read by the
+    benchmark's per-layer metrics (`gpubench/metrics/`). Locked: callers
+    include ExtBatcher worker threads and -t N mapping threads."""
     if enabled:
         with _cnt_lock:
             counters[name] = counters.get(name, 0.0) + v
@@ -69,22 +76,68 @@ def disable() -> None:
     enabled = False
 
 
-@contextmanager
+# what `stage` returns while profiling is off: one shared no-op context
+NO_STAGE = nullcontext()
+
+
 def stage(name: str):
     """Accumulate wall time under `name`. Nestable; each level accounts
     its own wall (inner stages are not subtracted — the table reports the
-    hierarchy by dotted names, e.g. 'chain.device')."""
+    hierarchy by dotted names, e.g. 'chain.device'). While profiling is
+    off it returns `NO_STAGE`."""
     if not enabled:
-        yield
-        return
+        return NO_STAGE
+    return _Stage(name)
+
+
+class _Stage:
+    """A stage while profiling is on; while a trace runs, also a
+    `record_function` range of its name."""
+    __slots__ = ("name", "t0", "rec")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    # The seconds count the range's opening; the bookkeeping lies inside
+    # the range, so that little of a stage's cost falls between ranges.
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        self.rec = _rf_open(self.name, None) if _trace_active else None
+
+    def __exit__(self, *exc):
+        add(self.name, time.perf_counter() - self.t0)
+        if self.rec is not None:
+            with _rf_guard():
+                _rf_close(self.rec)
+        return False
+
+
+# While a trace runs: the two operators that
+# `torch.profiler.record_function` calls to open and close a range, and
+# the guard it closes one under. A stage calls them directly: the Python
+# layers around them cost time that falls mostly between the ranges.
+_rf_open = _rf_close = _rf_guard = None
+
+
+def _bind_range_ops() -> None:
+    global _rf_open, _rf_close, _rf_guard
+    import torch
+    ops = torch.ops.profiler
+    enter = ops._record_function_enter_new.default
+    exit_ = ops._record_function_exit._RecordFunction
+    _rf_open = getattr(enter, "_op", enter)
+    _rf_close = getattr(exit_, "_op", exit_)
+    _rf_guard = torch._C.DisableTorchFunctionSubclass
+
+
+def timed(name: str, fn, *args, **kw):
+    """`fn(*args, **kw)`, its seconds added to `name` while profiling is
+    on: a stage of the table that opens no trace range."""
+    if not enabled:
+        return fn(*args, **kw)
     t0 = time.perf_counter()
     try:
-        if _trace_active:
-            import torch
-            with torch.profiler.record_function(name):
-                yield
-        else:
-            yield
+        return fn(*args, **kw)
     finally:
         add(name, time.perf_counter() - t0)
 
@@ -133,6 +186,7 @@ def trace_if_enabled(device=None):
     t0 = time.perf_counter()
     prof.start()
     add("trace.start", time.perf_counter() - t0)
+    _bind_range_ops()
     _trace_active = True
     try:
         yield

@@ -141,7 +141,7 @@ def test_batch_round(tasks, profile, monkeypatch, mesh):
     _, opt = set_opt("map-ont")
     names = ["over", "under"]
 
-    def prepare(mi, seqs, o, qname, seed_hits=True):
+    def frag_ctx(seqs, o, qname):
         a = tasks[qname][0]
         return pipeline._FragCtx(
             seqs=seqs, qlens=[len(seqs[0])], qlen_sum=len(seqs[0]),
@@ -151,12 +151,13 @@ def test_batch_round(tasks, profile, monkeypatch, mesh):
 
     got = {}
 
-    def post_chain(mi, ctx, o, a, u):
+    def post_regions(mi, ctx, o, a, u):
         got[ctx.qname] = (a, u)
-        return pipeline.FragResult(regs=[[]])
+        return []
 
-    monkeypatch.setattr(pipeline, "_prepare", prepare)
-    monkeypatch.setattr(pipeline, "_post_chain", post_chain)
+    monkeypatch.setattr(pipeline, "_frag_ctx", frag_ctx)
+    monkeypatch.setattr(pipeline, "_seed_ctx", lambda *a, **kw: None)
+    monkeypatch.setattr(pipeline, "_post_regions", post_regions)
     calls = chain_v3.reference_calls
     m = None if mesh is None else M.make_mesh(mesh, devices=["cpu"] * mesh)
     pipeline.map_frags_batched(None, [["A" * 10000]] * 2, opt, names, "cpu",
