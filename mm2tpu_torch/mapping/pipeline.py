@@ -49,6 +49,7 @@ from ..parallel.mesh import gather
 from ..utils import profiling
 from ..utils.hashing import reg_hash
 from . import hit as hit_mod
+from . import seed_batch
 from .chain import chain_dp, chain_gaps
 from .esterr import est_err
 from .extbatch import TorchExtBatcher, fill_scope, worker_scope
@@ -133,6 +134,24 @@ def _seed_ctx(mi: MMIndex, ctx: _FragCtx, opt: MapOptions,
         if seed_hits:
             ctx.sr = collect_seed_hits(mi, opt, opt.mid_occ, ctx.mv,
                                        ctx.qname, ctx.qlen_sum)
+
+
+def _seed_first_pass(mi: MMIndex, opt: MapOptions, ctxs: List[_FragCtx],
+                     seed_hits: bool) -> None:
+    """`_seed_ctx` of every context, by `seed_batch.seed_frags`' two calls
+    a batch where `seed_batch.covers` holds, else a read at a time. Counts
+    the reads as `seed.reads`, those of the batch calls as
+    `seed.batched`, and a batch whose runtime lacks the batch calls as
+    `fallback.seed_batch`."""
+    profiling.count("seed.reads", len(ctxs))
+    if ctxs and seed_batch.covers(mi, opt, seed_hits):
+        if native.has_seed_batch():
+            seed_batch.seed_frags(mi, opt, ctxs, seed_hits)
+            profiling.count("seed.batched", len(ctxs))
+            return
+        profiling.count("fallback.seed_batch")
+    for ctx in ctxs:
+        _seed_ctx(mi, ctx, opt, seed_hits)
 
 
 def _prepare(mi: MMIndex, seqs: Sequence[str], opt: MapOptions,
@@ -641,6 +660,11 @@ def map_frags_batched(mi: MMIndex, frag_seqs: Sequence[Sequence[str]],
     backtracked and post-processed on the host. Output equals
     `mm2tpu.mapping.pipeline.map_frags_batched` on one device.
 
+    The first seeding pass seeds the whole batch in two native calls
+    spread over the host's cores (`seed_batch.seed_frags`), where they
+    cover the options and the index (`seed_batch.covers`), else a read
+    at a time (`_seed_first_pass`).
+
     On CUDA, chunk k+1 is packed and launched while chunk k's results
     come back: the launch and a non-blocking copy into pinned host
     memory go on the current stream, and a CUDA event tells the host
@@ -718,8 +742,8 @@ def map_frags_batched(mi: MMIndex, frag_seqs: Sequence[Sequence[str]],
         for i in ctxs:
             results[i] = None
     pending: List[int] = list(ctxs)
-    for i in pending:
-        _seed_ctx(mi, ctxs[i], opt, seed_hits=not use_dev_seed)
+    _seed_first_pass(mi, opt, [ctxs[i] for i in pending],
+                     seed_hits=not use_dev_seed)
     native_v = native.available()
     empty = np.zeros((0, 2), np.uint64)
 

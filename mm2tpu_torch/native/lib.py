@@ -11,11 +11,14 @@ calls per batch). Each wrapper guarantees dtype + contiguity itself via
 `_ptr` and keeps the backing array alive across the call.
 
 The port's copy of `mm2tpu/native/lib.py`, verbatim apart from its
-imports and from where the library comes from. The port compiles the
-C++ source (which stays in `native/`) itself, with `native/Makefile`'s
-compiler and flags, into `build/mm2tpu_torch/libmm2tpu_host_<hash>.so`,
-named by a hash of the source and the flags: an edited source is never
-served by an older build. It builds at first use under a file lock, and
+imports, from where the library comes from, and from the batch seeding
+entries at its end with the index-pointer cache (`_index_ptrs`) that
+they share with `seed_hits`. The port compiles the C++ source (which
+stays in `native/`) itself, with `native/Makefile`'s compiler and
+flags, and with its own `seed_batch.cpp` beside it, into
+`build/mm2tpu_torch/libmm2tpu_host_<hash>.so`, named by a hash of the
+sources and the flags: an edited source is never served by an older
+build. It builds at first use under a file lock, and
 `build(force=True)` recompiles. It never loads `native/libmm2tpu.so`.
 """
 from __future__ import annotations
@@ -31,10 +34,12 @@ import numpy as np
 import os as _os
 
 _REPO = pathlib.Path(__file__).resolve().parents[2]
-_SRC = _REPO / "native" / "mm2tpu_native.cpp"
+_SRCS = (_REPO / "native" / "mm2tpu_native.cpp",
+         pathlib.Path(__file__).with_name("seed_batch.cpp"))
 BUILD_DIR = _REPO / "build" / "mm2tpu_torch"
+# native/Makefile's CXX and CXXFLAGS, and the threads of seed_batch.cpp
 _CXX = ("g++", "-O3", "-march=native", "-fPIC", "-shared", "-std=c++17",
-        "-Wall")   # native/Makefile's CXX and CXXFLAGS
+        "-Wall", "-pthread")
 _lib: Optional[ctypes.CDLL] = None
 _checked = False
 loaded_from: Optional[pathlib.Path] = None   # the library _load() opened
@@ -51,9 +56,10 @@ def _ptr(a, dtype):
 
 
 def so_path() -> pathlib.Path:
-    """Where the build of the current source and flags lives."""
+    """Where the build of the current sources and flags lives."""
     h = hashlib.sha256(" ".join(_CXX).encode())
-    h.update(_SRC.read_bytes())
+    for src in _SRCS:
+        h.update(src.read_bytes())
     return BUILD_DIR / ("libmm2tpu_host_%s.so" % h.hexdigest()[:16])
 
 
@@ -70,7 +76,7 @@ def build(force: bool = False) -> pathlib.Path:
         fcntl.flock(lk, fcntl.LOCK_EX)
         if force or not so.exists():
             tmp = so.with_name("%s.%d.tmp" % (so.name, _os.getpid()))
-            r = subprocess.run([*_CXX, "-o", str(tmp), str(_SRC)],
+            r = subprocess.run([*_CXX, "-o", str(tmp), *map(str, _SRCS)],
                                capture_output=True, text=True, timeout=600)
             if r.returncode != 0:
                 tmp.unlink(missing_ok=True)
@@ -153,6 +159,16 @@ def _open() -> None:
             ctypes.POINTER(ctypes.POINTER(ctypes.c_uint64)),
             ctypes.POINTER(_I64), ctypes.POINTER(_I64)]
         lib.mm2_seed_hits.restype = _I64
+    if hasattr(lib, "mm2t_sketch_batch"):
+        lib.mm2t_sketch_batch.argtypes = [_VP, _VP, _VP, _VP, _I64, _I32,
+                                          _I32, _I32, _I32, _VP]
+        lib.mm2t_sketch_batch.restype = _VP
+        lib.mm2t_seed_hits_batch.argtypes = [
+            _VP, _VP, _I64, _VP, _I64, _VP, _VP, _VP, _I32, _I32, _VP, _VP,
+            _I32, _I32, _I32, _VP, _VP, _VP]
+        lib.mm2t_seed_hits_batch.restype = _VP
+        lib.mm2t_batch_take.argtypes = [_VP, _I32, _VP, _VP]
+        lib.mm2t_batch_take.restype = None
     if hasattr(lib, "mm2_set_parent_select"):
         lib.mm2_set_parent_select.argtypes = [
             _I64] + [_VP] * 7 + [ctypes.c_float, _I32, _I32, _I32,
@@ -710,6 +726,25 @@ def has_seed_hits() -> bool:
     return lib is not None and hasattr(lib, "mm2_seed_hits")
 
 
+def _index_ptrs(keys, start, cnt, lut, pos, cache_obj):
+    """(key, originals, coerced arrays, (n_keys, raw pointers)) of the
+    five index planes, memoized on `cache_obj` (see `seed_hits`)."""
+    st = getattr(cache_obj, "_nat_seedptrs", None) \
+        if cache_obj is not None else None
+    key = (id(keys), id(start), id(cnt), id(lut), id(pos))
+    if st is None or st[0] != key:
+        ka, kp = _ptr(keys, np.uint64)
+        sa, sp = _ptr(start, np.int64)
+        ca, cp = _ptr(cnt, np.int32)
+        la, lp = _ptr(lut, np.int64)
+        pa, pp = _ptr(pos, np.uint64)
+        st = (key, (keys, start, cnt, lut, pos), (ka, sa, ca, la, pa),
+              (len(ka), kp, sp, cp, lp, pp))
+        if cache_obj is not None:
+            cache_obj._nat_seedptrs = st
+    return st
+
+
 def seed_hits(mv: np.ndarray, keys: np.ndarray, start: np.ndarray,
               cnt: np.ndarray, lut_bits: int, shift: int, lut: np.ndarray,
               pos: np.ndarray, max_occ: int, qlen: int, skip_mode: int,
@@ -727,19 +762,7 @@ def seed_hits(mv: np.ndarray, keys: np.ndarray, start: np.ndarray,
     recycled while the entry is alive."""
     lib = _load()
     mva, mvp = _ptr(mv, np.uint64)
-    st = getattr(cache_obj, "_nat_seedptrs", None) \
-        if cache_obj is not None else None
-    key = (id(keys), id(start), id(cnt), id(lut), id(pos))
-    if st is None or st[0] != key:
-        ka, kp = _ptr(keys, np.uint64)
-        sa, sp = _ptr(start, np.int64)
-        ca, cp = _ptr(cnt, np.int32)
-        la, lp = _ptr(lut, np.int64)
-        pa, pp = _ptr(pos, np.uint64)
-        st = (key, (keys, start, cnt, lut, pos), (ka, sa, ca, la, pa),
-              (len(ka), kp, sp, cp, lp, pp))
-        if cache_obj is not None:
-            cache_obj._nat_seedptrs = st
+    st = _index_ptrs(keys, start, cnt, lut, pos, cache_obj)
     keep = st[1], st[2]  # noqa: F841  (pin originals + coerced arrays)
     n_keys, kp, sp, cp, lp, pp = st[3]
     out_a = ctypes.POINTER(ctypes.c_uint64)()
@@ -996,3 +1019,83 @@ def fix_bad_ends(a: np.ndarray, as0: int, cnt: int, bw: int,
     lib.mm2_fix_bad_ends(ap, as0, cnt, bw, min_match, mlen,
                          ctypes.byref(as_out), ctypes.byref(cnt_out))
     return int(as_out.value), int(cnt_out.value)
+
+
+# ---- the port's batch seeding entries (mm2tpu_torch/native/seed_batch.cpp)
+
+def has_seed_batch() -> bool:
+    return available() and hasattr(_load(), "mm2t_seed_hits_batch")
+
+
+def _offsets(counts: np.ndarray) -> np.ndarray:
+    off = np.zeros(len(counts) + 1, np.int64)
+    np.cumsum(counts, out=off[1:])
+    return off
+
+
+def _take(lib, handle, n_threads: int, *shapes) -> list:
+    """The handle's outputs as new uint64 arrays of `shapes`, the handle
+    freed whatever happens."""
+    if not handle:
+        raise MemoryError("the native batch seeding ran out of memory")
+    try:
+        outs = [np.empty(s, np.uint64) for s in shapes]
+    except BaseException:
+        lib.mm2t_batch_take(handle, 0, None, None)
+        raise
+    ptrs = [o.ctypes.data for o in outs] + [None] * (2 - len(outs))
+    lib.mm2t_batch_take(handle, n_threads, *ptrs)
+    return outs
+
+
+def sketch_batch(seq: bytes, seg_off: np.ndarray, seg_shift: np.ndarray,
+                 read_seg: np.ndarray, w: int, k: int, is_hpc: bool,
+                 n_threads: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Every read's minimizers, on `n_threads` threads: segment s is
+    seq[seg_off[s]:seg_off[s + 1]] (bases, coded as `encode_nt4` codes
+    them), sketched with rid = its index in its read and its y raised by
+    seg_shift[s]; read r is segments read_seg[r] .. read_seg[r + 1] - 1.
+    Returns (mv (n, 2) u64, mv_off): read r's are
+    mv[mv_off[r]:mv_off[r + 1]]."""
+    lib = _load()
+    n_reads = len(read_seg) - 1
+    ca, cp = _ptr(np.frombuffer(seq, np.uint8), np.uint8)
+    so, sop = _ptr(seg_off, np.int64)
+    sh, shp = _ptr(seg_shift, np.uint64)
+    rs, rsp = _ptr(read_seg, np.int64)
+    n_mv = np.empty(n_reads, np.int64)
+    h = lib.mm2t_sketch_batch(cp, sop, shp, rsp, n_reads, w, k, int(is_hpc),
+                              n_threads, n_mv.ctypes.data)
+    off = _offsets(n_mv)
+    mv, = _take(lib, h, n_threads, (int(off[-1]), 2))
+    return mv, off
+
+
+def seed_hits_batch(mv: np.ndarray, mv_off: np.ndarray, qlen: np.ndarray,
+                    keys: np.ndarray, start: np.ndarray, cnt: np.ndarray,
+                    lut_bits: int, shift: int, lut: np.ndarray,
+                    pos: np.ndarray, max_occ: int, skip_mode: int,
+                    n_threads: int, cache_obj=None):
+    """`seed_hits` of every read of a batch, on `n_threads` threads: read
+    r's minimizers are mv[mv_off[r]:mv_off[r + 1]], its query length
+    qlen[r]. Returns (anchors (n, 2) u64, anchor offsets, mini_pos u64,
+    mini_pos offsets, rep_len int64 a read), read r's anchors being
+    anchors[a_off[r]:a_off[r + 1]]; a read without minimizers has none
+    and rep_len 0."""
+    lib = _load()
+    n_reads = len(mv_off) - 1
+    mva, mvp = _ptr(mv, np.uint64)
+    oa, op = _ptr(mv_off, np.int64)
+    qa, qp = _ptr(qlen, np.int64)
+    st = _index_ptrs(keys, start, cnt, lut, pos, cache_obj)
+    keep = st[1], st[2]  # noqa: F841  (pin originals + coerced arrays)
+    n_keys, kp, sp, cp, lp, pp = st[3]
+    n_a, n_mini, rep = (np.empty(n_reads, np.int64) for _ in range(3))
+    h = lib.mm2t_seed_hits_batch(
+        mvp, op, n_reads, qp, n_keys, kp, sp, cp, lut_bits, shift, lp, pp,
+        max_occ, skip_mode, n_threads, n_a.ctypes.data, n_mini.ctypes.data,
+        rep.ctypes.data)
+    a_off, m_off = _offsets(n_a), _offsets(n_mini)
+    a, mini = _take(lib, h, n_threads, (int(a_off[-1]), 2),
+                    int(m_off[-1]))
+    return a, a_off, mini, m_off, rep

@@ -156,7 +156,7 @@ def test_batch_round(tasks, profile, monkeypatch, mesh):
         return []
 
     monkeypatch.setattr(pipeline, "_frag_ctx", frag_ctx)
-    monkeypatch.setattr(pipeline, "_seed_ctx", lambda *a, **kw: None)
+    monkeypatch.setattr(pipeline, "_seed_first_pass", lambda *a, **kw: None)
     monkeypatch.setattr(pipeline, "_post_regions", post_regions)
     calls = chain_v3.reference_calls
     m = None if mesh is None else M.make_mesh(mesh, devices=["cpu"] * mesh)

@@ -62,9 +62,9 @@ MODES = {
 }
 
 # the Python twins of the native calls on the spliced batch PAF path
-FALLBACKS = ("fallback.sketch", "fallback.seed_hits",
-             "fallback.gen_regs_fast", "fallback.est_err",
-             "fallback.v_carry", "fallback.backtrack")
+FALLBACKS = ("fallback.seed_batch", "fallback.sketch",
+             "fallback.seed_hits", "fallback.gen_regs_fast",
+             "fallback.est_err", "fallback.v_carry", "fallback.backtrack")
 
 
 @pytest.fixture(scope="module")
