@@ -393,6 +393,11 @@ def _seed_device_eligible(opt: MapOptions, ctx: _FragCtx) -> bool:
 # reads a device-seeding dispatch carries at most
 SEED_B = 32
 
+# the largest anchor bucket a device-seeding dispatch builds and chains: a
+# read whose anchor total needs a larger one is handed back to host seeding
+# (`_chain_chunks`, `_seed_device_round`)
+DEVICE_ANCHOR_CAP = 131072
+
 
 def _m_bucket(m: int) -> int:
     """The minimizer count a read's row is padded to."""
@@ -455,7 +460,7 @@ def _seed_meta(prep, c: np.ndarray, mid_occ: int):
 def _chain_chunks(ctxs: dict, idxs: List[int], meta: dict):
     """The fused dispatches of the reads with anchors: (key = (M, N,
     gap_ref, gap_qry), chunk, B) each, and the reads whose total needs a
-    bucket over 131072 (seeded on the host)."""
+    bucket over `DEVICE_ANCHOR_CAP` (seeded on the host)."""
     groups: dict = {}
     big = []
     for i in idxs:
@@ -463,7 +468,7 @@ def _chain_chunks(ctxs: dict, idxs: List[int], meta: dict):
         if total == 0:
             continue
         N = bucket_for(total)
-        if N > 131072:
+        if N > DEVICE_ANCHOR_CAP:
             big.append(i)
             continue
         groups.setdefault((_m_bucket(len(ctxs[i].mv)), N, ctxs[i].gap_ref,
@@ -522,18 +527,25 @@ def _seed_device_round(mi: MMIndex, opt: MapOptions, ctxs: dict,
     SEED_B reads probes again, builds and sorts the anchors and chains
     them on K1 (`seed_fn`, default `ops.seed_device.seed_chain`). Fills
     ctx.sr and returns {i: (a, u)} backtrack results; a fragment whose
-    anchor total needs a bucket over 131072 keeps ctx.sr None (the
-    caller seeds it on the host). Dispatches run two deep: chunk k+1 is
-    packed and launched while chunk k's results come back. `--profile`'s
-    seed.launches counts each K5 launch (a count probe) and each K6
-    launch (a fused dispatch's chain of seeding kernels) as one."""
+    anchor total needs a bucket over `DEVICE_ANCHOR_CAP` keeps ctx.sr
+    None (the caller seeds it on the host). Dispatches run two deep:
+    chunk k+1 is packed and launched while chunk k's results come back.
+    `--profile`'s seed.launches counts each K5 launch (a count probe) and
+    each K6 launch (a fused dispatch's chain of seeding kernels) as one;
+    seed.device_reads the fragments the round seeds, seed.capped those it
+    hands back past the cap. The host glue has leaf stages of its own:
+    `seed.split` (every read's `split_query_minimizers`) and `seed.meta`
+    (every read's `_seed_meta`, and `_chain_chunks`), one range a round,
+    and `seed.pack` (a dispatch's `_seed_planes`), one range a
+    dispatch."""
     fn = sd.seed_chain if seed_fn is None else seed_fn
     timed = dev.type == "cuda" and profiling.enabled
     mid_occ = int(opt.mid_occ)
-    prep = {i: sd.split_query_minimizers(ctxs[i].mv) for i in idxs}
-    if profiling.enabled:
-        profiling.count("seed.minimizers", sum(len(prep[i][0])
-                                               for i in idxs))
+    with profiling.stage("seed.split"):
+        prep = {i: sd.split_query_minimizers(ctxs[i].mv) for i in idxs}
+        if profiling.enabled:
+            profiling.count("seed.minimizers", sum(len(prep[i][0])
+                                                   for i in idxs))
 
     # ---- the counts: one probe per chunk of each M bucket ----
     cnts = {}
@@ -562,25 +574,30 @@ def _seed_device_round(mi: MMIndex, opt: MapOptions, ctxs: dict,
                 cnts[i] = c[r, :len(ctxs[i].mv)]
 
     # ---- host: rep_len / mini_pos / totals / avg (seed.py semantics) ----
-    meta = {i: _seed_meta(prep[i], cnts[i], mid_occ) for i in idxs}
     outs: dict = {}
-    for i in idxs:
-        rep_len, mini_pos, total, _ = meta[i]
-        if total == 0:
-            ctxs[i].sr = SeedResult(np.zeros((0, 2), np.uint64), rep_len,
-                                    mini_pos, len(ctxs[i].mv))
-            outs[i] = (np.zeros((0, 2), np.uint64), np.zeros(0, np.uint64))
+    with profiling.stage("seed.meta"):
+        meta = {i: _seed_meta(prep[i], cnts[i], mid_occ) for i in idxs}
+        for i in idxs:
+            rep_len, mini_pos, total, _ = meta[i]
+            if total == 0:
+                ctxs[i].sr = SeedResult(np.zeros((0, 2), np.uint64),
+                                        rep_len, mini_pos, len(ctxs[i].mv))
+                outs[i] = (np.zeros((0, 2), np.uint64),
+                           np.zeros(0, np.uint64))
+        plan, big = _chain_chunks(ctxs, idxs, meta)
+    profiling.count("seed.device_reads", len(idxs) - len(big))
+    profiling.count("seed.capped", len(big))
 
     # ---- fused probe + build + sort + chain per (M, N, gap) bucket ----
     iter_cap = min(WINDOW, opt.max_chain_iter)
-    plan, big = _chain_chunks(ctxs, idxs, meta)
     for i in big:
         ctxs[i].sr = None  # seeded on the host
     native_v = native.available()
 
     def dispatch(job):
         (M, N, gap_ref, gap_qry), chunk, B = job
-        arrays = _seed_planes(prep, ctxs, meta, chunk, B, M)
+        with profiling.stage("seed.pack"):
+            arrays = _seed_planes(prep, ctxs, meta, chunk, B, M)
         with profiling.stage("seed.device_chain"):
             if profiling.enabled:
                 totals = [meta[i][2] for i in chunk]

@@ -116,8 +116,13 @@ def device_index(keys, start, cnt, device, pos=None) -> dict:
     `start`/`cnt` int32 (the columns of the table's sc plane), `table`
     (`bucket_table`) and, given `pos` (rid<<32 | rpos<<1 | strand),
     `pos` int64 with `rid_bits`/`pos_bits`, the bits of its largest rid
-    and rpos (the width of K6's sort key)."""
+    and rpos (the width of K6's sort key). Raises where K6's int32 offset
+    into `pos` would wrap (2^31 positions or more)."""
     dev = torch.device(device)
+    if pos is not None and len(pos) >= 1 << 31:
+        raise ValueError("device_index: K6 addresses the positions by an "
+                         "int32 start + offset, which wraps at 2^31; the "
+                         "index has %d" % len(pos))
 
     def to(a, dtype):
         return torch.as_tensor(np.ascontiguousarray(a) if isinstance(
@@ -136,15 +141,23 @@ def device_index(keys, start, cnt, device, pos=None) -> dict:
     return out
 
 
+def _as_int64(a: np.ndarray) -> np.ndarray:
+    """`a` as int64 with no host copy where it is uint64 or int64 (the
+    index's keys and positions, below 2^63, keep their bits)."""
+    return a.view(np.int64) if a.dtype == np.uint64 else \
+        a.astype(np.int64, copy=False)
+
+
 def prepare_index_device(mi, device) -> dict:
     """`device_index` of the host index `mi` with its positions (cached
-    on `mi` per device)."""
+    on `mi` per device). The keys and positions go up from the index's
+    own arrays (an MMX index's mmap), not from int64 copies of them."""
     dev = torch.device(device)
     cache = mi.__dict__.setdefault("_torch_dev_idx", {})
     key = str(dev)
     if key not in cache:
-        cache[key] = device_index(mi.keys.astype(np.int64), mi.start,
-                                  mi.cnt, dev, pos=mi.pos.astype(np.int64))
+        cache[key] = device_index(_as_int64(mi.keys), mi.start, mi.cnt, dev,
+                                  pos=_as_int64(mi.pos))
     return cache[key]
 
 
